@@ -1,0 +1,126 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+This file imports neither JAX nor tpu_yolo, so it also runs where only
+PyTorch is installed; tests/conftest.py imports JAX, so run it there with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Every test needs a CUDA card and skips without one.
+"""
+import numpy as np
+import pytest
+import torch
+
+from tpu_yolo_torch.core.config import ModelConfig
+from tpu_yolo_torch.io.weights import from_jax_params
+from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+from tpu_yolo_torch.ops.attention_cuda import attention_plain, fused_attention
+from tpu_yolo_torch.ops.nms_cuda import greedy_keep, greedy_keep_plain
+from tpu_yolo_torch.serve import Detector
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,bh,t", [(torch.bfloat16, 256, 400),
+                                        (torch.bfloat16, 16, 1600),
+                                        (torch.bfloat16, 3, 57),
+                                        (torch.float32, 8, 400)])
+def test_attention_kernel_matches_plain(cuda, dtype, bh, t):
+    """bf16: within 1e-2 abs + 1e-2 rel (p is rounded to bf16 at another
+    point of the online softmax than in the plain version); f32: 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k = (torch.randn(bh, t, 32, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    v = torch.randn(bh, t, 64, device=cuda, generator=gen).to(dtype)
+    before = fused_attention.launches
+    got = fused_attention(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == before + 1
+    want = attention_plain(q, k, v, 32 ** -0.5)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _scene(rng, b, k, clustered):
+    if clustered:
+        n_obj = max(4, k // 24)
+        centers = rng.uniform(40, 600, (b, n_obj, 2))
+        sizes = rng.uniform(16, 160, (b, n_obj, 2))
+        obj = rng.integers(0, n_obj, (b, k))
+        c = (np.take_along_axis(centers, obj[..., None], 1)
+             + rng.normal(0, 6, (b, k, 2)))
+        s = (np.take_along_axis(sizes, obj[..., None], 1)
+             * rng.uniform(0.85, 1.15, (b, k, 2)))
+        boxes = np.concatenate([c - s / 2, c + s / 2], -1)
+        cls, valid = rng.integers(0, 8, (b, k)), rng.random((b, k)) > 0.1
+    else:
+        xy1 = rng.uniform(0, 600, (b, k, 2))
+        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 200, (b, k, 2))], -1)
+        cls, valid = rng.integers(0, 80, (b, k)), rng.random((b, k)) > 0.3
+    return boxes.astype(np.float32), cls.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("b,k,clustered", [(128, 1024, True), (8, 2048, True),
+                                           (1, 256, True), (4, 1000, False),
+                                           (3, 33, True), (2, 8192, False)])
+def test_nms_kernel_equals_plain(cuda, b, k, clustered):
+    rng = np.random.default_rng(b * k)
+    boxes, cls, valid = (torch.from_numpy(a).to(cuda)
+                         for a in _scene(rng, b, k, clustered))
+    before = greedy_keep.launches
+    got = greedy_keep(boxes, cls, valid, 0.65)
+    torch.cuda.synchronize()
+    assert greedy_keep.launches == before + 1
+    assert torch.equal(got, greedy_keep_plain(boxes, cls, valid, 0.65))
+
+
+def test_detector_runs_both_kernels(cuda):
+    cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
+                      csp=(False, True), num_classes=8)
+    params = init_params(0, cfg)
+    for level in params["head"]["cls"]:
+        level[4]["b"][:] = -1.0
+    det = Detector(YOLO.from_state_dict(cfg, from_jax_params(params, cfg)),
+                   input_size=128, device="cuda")
+    imgs = np.random.default_rng(1).integers(0, 256, (2, 128, 128, 3), np.uint8)
+    attn, keep = fused_attention.launches, greedy_keep.launches
+    res = det.detect_batch(imgs)
+    torch.cuda.synchronize()
+    assert fused_attention.launches > attn and greedy_keep.launches > keep
+    assert int(res["count"].min()) > 0
+
+
+def test_stream_on_the_card_equals_detect_one(cuda, tmp_path):
+    """stream()'s pinned double buffer and per-result events give what
+    detect_one gives, image by image (f32, TF32 off: the two paths run
+    at different batch sizes)."""
+    cv2 = pytest.importorskip("cv2")
+    cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
+                      csp=(False, True), num_classes=8)
+    params = init_params(0, cfg)
+    for level in params["head"]["cls"]:
+        level[4]["b"][:] = -1.0
+    det = Detector(YOLO.from_state_dict(cfg, from_jax_params(params, cfg)),
+                   input_size=128, device="cuda", compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, (h, w) in enumerate([(120, 160), (80, 60), (128, 128), (90, 200),
+                                (200, 90)]):
+        paths.append(str(tmp_path / f"im{i}.jpg"))
+        cv2.imwrite(paths[-1], rng.integers(0, 255, (h, w, 3), np.uint8))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        streamed = list(det.stream(paths, batch_size=2))
+        singles = [det.detect_one(p) for p in paths]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert [r["path"] for r in streamed] == paths
+    for r, one in zip(streamed, singles):
+        np.testing.assert_array_equal(r["classes"], one["classes"])
+        np.testing.assert_allclose(r["boxes"], one["boxes"], atol=0.05)

@@ -1,0 +1,46 @@
+"""Host-side image decode and letterbox geometry (counterpart of
+`tpu_yolo/data/image.py`, eval form). The rounding conventions (the
+±0.1 center-pad split, "never upscale at eval") match it exactly.
+`cv2` is imported only by the functions that decode or resize."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def load_image(path: str, input_size: int):
+    """Decode BGR and pre-scale so the long side is input_size.
+
+    Returns (image, (orig_h, orig_w))."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise FileNotFoundError(f"cannot decode image: {path}")
+    h, w = img.shape[:2]
+    r = input_size / max(h, w)
+    if r != 1:
+        img = cv2.resize(img, (int(w * r), int(h * r)),
+                         interpolation=cv2.INTER_LINEAR)
+    return img, (h, w)
+
+
+def letterbox(img: np.ndarray, input_size: int):
+    """Scale-preserving resize (never up) + center pad to
+    (input_size, input_size).
+
+    Returns (padded_image, (rw, rh) scale ratios, (pad_w, pad_h) in px)."""
+    import cv2
+
+    h, w = img.shape[:2]
+    r = min(input_size / h, input_size / w, 1.0)
+    new_w, new_h = int(round(w * r)), int(round(h * r))
+    pad_w = (input_size - new_w) / 2
+    pad_h = (input_size - new_h) / 2
+
+    if (w, h) != (new_w, new_h):
+        img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+
+    top, bottom = int(round(pad_h - 0.1)), int(round(pad_h + 0.1))
+    left, right = int(round(pad_w - 0.1)), int(round(pad_w + 0.1))
+    img = cv2.copyMakeBorder(img, top, bottom, left, right, cv2.BORDER_CONSTANT)
+    return img, (r, r), (pad_w, pad_h)

@@ -1,0 +1,294 @@
+"""Weights into the port's YOLO module.
+
+Three sources:
+  * `from_jax_params`: a JAX-layout param tree of numpy arrays (what
+    `tpu_yolo` and `models.yolov11.init_params` build, and what `.ckpt`
+    files hold) -> a state dict. A key is the tree path joined with dots;
+    conv kernels go from HWIO to OIHW.
+  * `convert_state_dict`: a torch state dict in the reference's naming
+    (net.p1.0.conv.weight, ...) or Ultralytics' YOLO11 naming
+    (model.0.conv.weight, ..., model.23.cv2/cv3) -> a state dict.
+  * `load_torch_state_dict`: .pt / .npz files, including pickled module
+    trees whose classes are not importable (stub classes, scavenged).
+
+Every mapping is exact and coverage is asserted at 100% both ways: an
+unused source tensor or an unfilled destination raises. The key tables
+are copies of the JAX package's `tpu_yolo/io/weights.py`.
+"""
+from __future__ import annotations
+
+import pickle
+import re
+
+import numpy as np
+import torch
+
+# ---------------------------------------------------------------------------
+# Raw tensor extraction from torch files.
+# ---------------------------------------------------------------------------
+
+
+class _StubUnpickler(pickle.Unpickler):
+    """Unpickler that fabricates bare classes for unimportable modules so
+    pickled nn.Module trees can be loaded structurally (their __dict__ is
+    restored onto a stub) and scavenged for tensors."""
+
+    def find_class(self, module, name):
+        try:
+            return super().find_class(module, name)
+        except (ImportError, AttributeError):
+            return type(name, (), {"__module__": module})
+
+
+class _StubPickleModule:
+    Unpickler = _StubUnpickler
+    # torch.load probes these attributes:
+    load = staticmethod(pickle.load)
+    loads = staticmethod(pickle.loads)
+    dumps = staticmethod(pickle.dumps)
+    UnpicklingError = pickle.UnpicklingError
+
+
+def _scavenge_state_dict(obj, prefix="", out=None):
+    """Walk a (possibly stub-class) module tree collecting parameter and
+    buffer tensors by dotted name, mirroring nn.Module.state_dict()."""
+    out = {} if out is None else out
+    d = getattr(obj, "__dict__", None)
+    if not isinstance(d, dict):
+        return out
+    for name, t in (d.get("_parameters") or {}).items():
+        if t is not None:
+            out[prefix + name] = t
+    for name, t in (d.get("_buffers") or {}).items():
+        if t is not None:
+            out[prefix + name] = t
+    for name, child in (d.get("_modules") or {}).items():
+        if child is not None:
+            _scavenge_state_dict(child, prefix + name + ".", out)
+    return out
+
+
+def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
+    """Read a torch .pt / .npz file into {name: float32 numpy array}."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: np.asarray(z[k], dtype=np.float32) for k in z.files}
+
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        obj = torch.load(path, map_location="cpu", weights_only=False,
+                         pickle_module=_StubPickleModule)
+
+    # Checkpoint dict wrappers: {'model': ..., 'ema': ..., 'state_dict': ...}
+    if isinstance(obj, dict):
+        for key in ("ema", "model", "state_dict"):
+            if key in obj and obj[key] is not None:
+                obj = obj[key]
+                break
+
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.state_dict()
+    elif not isinstance(obj, dict):
+        obj = _scavenge_state_dict(obj)
+
+    out = {}
+    for k, v in obj.items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().to(torch.float32).numpy()
+        out[k] = np.asarray(v, dtype=np.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Name translation: source key -> JAX tree path ("net/p1/0/w"), or None to
+# skip the key.
+# ---------------------------------------------------------------------------
+
+_LEAF_MAP = {
+    "conv.weight": "w",
+    "norm.weight": "gamma",
+    "norm.bias": "beta",
+    "norm.running_mean": "mean",
+    "norm.running_var": "var",
+    "bn.weight": "gamma",
+    "bn.bias": "beta",
+    "bn.running_mean": "mean",
+    "bn.running_var": "var",
+    "weight": "w",      # plain conv
+    "bias": "b",
+}
+
+# Ultralytics DetectionModel layer index -> our subtree (YOLO11 graph order;
+# 11/12/14/15/18/21 are param-free Upsample/Concat layers).
+_ULTRA_LAYERS = {
+    "0": "net/p1/0", "1": "net/p2/0", "2": "net/p2/1", "3": "net/p3/0",
+    "4": "net/p3/1", "5": "net/p4/0", "6": "net/p4/1", "7": "net/p5/0",
+    "8": "net/p5/1", "9": "net/p5/2", "10": "net/p5/3",
+    "13": "fpn/h1", "16": "fpn/h2", "17": "fpn/h3", "19": "fpn/h4",
+    "20": "fpn/h5", "22": "fpn/h6", "23": "head",
+}
+
+# Detect-head submodule translation: cv2 = box branch, cv3 = cls branch.
+_ULTRA_HEAD = [
+    (re.compile(r"^cv2\.(\d)\.([01])\."), r"box/\1/\2/"),
+    (re.compile(r"^cv2\.(\d)\.2\."), r"box/\1/2/"),
+    (re.compile(r"^cv3\.(\d)\.0\.0\."), r"cls/\1/0/"),
+    (re.compile(r"^cv3\.(\d)\.0\.1\."), r"cls/\1/1/"),
+    (re.compile(r"^cv3\.(\d)\.1\.0\."), r"cls/\1/2/"),
+    (re.compile(r"^cv3\.(\d)\.1\.1\."), r"cls/\1/3/"),
+    (re.compile(r"^cv3\.(\d)\.2\."), r"cls/\1/4/"),
+]
+
+
+def _split_leaf(rest: str):
+    """Split the trailing module-leaf suffix and return (stem, our-leaf)."""
+    for suffix, leaf in _LEAF_MAP.items():
+        if rest.endswith("." + suffix):
+            return rest[: -len(suffix) - 1], leaf
+        if rest == suffix:
+            return "", leaf
+    return None, None
+
+
+def _translate_reference_key(key: str):
+    """reference module names -> our path, or None to skip."""
+    if "num_batches_tracked" in key or key.startswith("head.dfl"):
+        return None
+    stem, leaf = _split_leaf(key)
+    if leaf is None:
+        raise KeyError(f"unrecognized reference key: {key}")
+
+    # PSA region: net.p5.3.res_m.N.{conv1->attn{qkv,pe,proj}, conv2->ffn}.
+    m = re.match(r"^net\.p5\.3\.res_m\.(\d+)\.(.*)$", stem)
+    if m:
+        idx, rest = m.groups()
+        rest = re.sub(r"^conv1\.qkv$", "attn.qkv", rest)
+        rest = re.sub(r"^conv1\.conv1$", "attn.pe", rest)
+        rest = re.sub(r"^conv1\.conv2$", "attn.proj", rest)
+        rest = re.sub(r"^conv2\.([01])$", r"ffn.\1", rest)
+        stem = f"net.p5.3.m.{idx}.{rest}"
+    stem = stem.replace(".res_m.", ".m.")
+    return stem.replace(".", "/") + "/" + leaf
+
+
+def _translate_ultralytics_key(key: str):
+    """ultralytics YOLO11 names -> our path, or None to skip."""
+    if "num_batches_tracked" in key:
+        return None
+    key = key.removeprefix("model.")
+    layer, _, rest = key.partition(".")
+    if layer not in _ULTRA_LAYERS:
+        raise KeyError(f"unmapped ultralytics layer in key: {key}")
+    base = _ULTRA_LAYERS[layer]
+
+    if base == "head":
+        if rest.startswith("dfl."):
+            return None
+        for pat, repl in _ULTRA_HEAD:
+            if pat.match(rest):
+                rest = pat.sub(repl, rest)
+                break
+        else:
+            raise KeyError(f"unmapped head key: {key}")
+        stem, leaf = _split_leaf(rest.replace("/", "."))
+        if leaf is None:
+            raise KeyError(f"unrecognized head leaf: {key}")
+        return "head/" + stem.replace(".", "/") + "/" + leaf
+
+    stem, leaf = _split_leaf(rest)
+    if leaf is None:
+        raise KeyError(f"unrecognized leaf: {key}")
+    stem = stem.replace("cv1", "conv1").replace("cv2", "conv2").replace("cv3", "conv3")
+    stem = stem.replace(".", "/")
+    return f"{base}/{stem}/{leaf}" if stem else f"{base}/{leaf}"
+
+
+def _detect_format(names) -> str:
+    for n in names:
+        if n.startswith(("net.", "fpn.", "head.")):
+            return "reference"
+        if re.match(r"^(model\.)?\d+\.", n):
+            return "ultralytics"
+    raise ValueError("cannot detect checkpoint format from key names")
+
+
+# ---------------------------------------------------------------------------
+# State-dict assembly.
+# ---------------------------------------------------------------------------
+
+
+def _check_coverage(state: dict, template: dict) -> None:
+    missing = sorted(set(template) - set(state))
+    if missing:
+        raise ValueError(f"{len(missing)} destination weights not filled, "
+                         f"e.g. {missing[:8]}")
+    extra = sorted(set(state) - set(template))
+    if extra:
+        raise KeyError(f"{len(extra)} source weights have no destination, "
+                       f"e.g. {extra[:8]}")
+    for key, t in state.items():
+        if tuple(t.shape) != tuple(template[key].shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != expected "
+                             f"{tuple(template[key].shape)}")
+
+
+def _template(cfg, folded: bool) -> dict:
+    from tpu_yolo_torch.models.yolov11 import YOLO
+
+    model = YOLO(cfg)
+    if folded:
+        model.fold_batchnorm()
+    return model.state_dict()
+
+
+def _tree_items(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, (*prefix, str(k)))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, (*prefix, str(i)))
+    else:
+        yield prefix, tree
+
+
+def from_jax_params(params, cfg) -> dict[str, torch.Tensor]:
+    """JAX-layout param tree (numpy leaves, HWIO kernels; folded or not)
+    -> the port's state dict for `cfg`, float32 on the CPU. Raises unless
+    the tree fills every weight of the model and nothing else."""
+    state = {}
+    for path, leaf in _tree_items(params):
+        a = np.asarray(leaf, dtype=np.float32)
+        if path[-1] == "w" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        state[".".join(path)] = torch.from_numpy(np.array(a))
+    folded = not any(k.endswith(".gamma") for k in state)
+    _check_coverage(state, _template(cfg, folded))
+    return state
+
+
+def convert_state_dict(state: dict[str, np.ndarray], cfg,
+                       source_format: str | None = None):
+    """Reference- or Ultralytics-named torch state dict (numpy arrays,
+    OIHW) -> the port's unfolded state dict for `cfg`, with 100% coverage
+    asserted both ways."""
+    source_format = source_format or _detect_format(state.keys())
+    translate = (_translate_reference_key if source_format == "reference"
+                 else _translate_ultralytics_key)
+    out = {}
+    for src_key, tensor in state.items():
+        path = translate(src_key)
+        if path is None:
+            continue
+        key = path.replace("/", ".")
+        if key in out:
+            raise KeyError(f"{src_key} -> {key}: filled twice")
+        out[key] = torch.from_numpy(np.array(tensor, dtype=np.float32))
+    _check_coverage(out, _template(cfg, folded=False))
+    return out
+
+
+def load_checkpoint_params(path: str, cfg, source_format: str | None = None):
+    """One-call load: torch/npz file -> the port's state dict for `cfg`."""
+    return convert_state_dict(load_torch_state_dict(path), cfg, source_format)

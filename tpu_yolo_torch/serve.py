@@ -1,0 +1,225 @@
+"""Serving pipeline: uint8 images or paths -> detections (counterpart of
+`tpu_yolo/serve.py`).
+
+  host:    decode + letterbox with OpenCV in a thread pool (paths only);
+  device:  /255 in the compute dtype -> YOLO.forward_raw -> nms_from_raw,
+           on the card unless the caller passes device="cpu";
+  overlap: `stream` double-buffers: batch i+1 is staged in pinned host
+           memory and copied with non_blocking=True while batch i runs,
+           and each result comes back through its own pinned buffer and
+           CUDA event, so the host waits only on the result it emits.
+
+Boxes are returned in original-image pixel coordinates by inverting the
+letterbox transform ((xy - pad) / ratio), clipped to the image.
+"""
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.models.yolov11 import YOLO
+
+_DECODE_THREADS = 8
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+class Detector:
+    """Batched streaming detector.
+
+    >>> det = Detector.from_checkpoint("yolo11n.pt", size="n")
+    >>> for res in det.stream(paths, batch_size=64):
+    ...     res["boxes"], res["scores"], res["classes"]  # per image
+    """
+
+    def __init__(self, model: YOLO, input_size: int = 640,
+                 conf_thres: float = 0.25, iou_thres: float = 0.65,
+                 max_det: int = 300, compute_dtype=torch.bfloat16,
+                 ranking: str = "approx", max_nms: int | None = None,
+                 multi_label: bool | None = None, latency_mode: bool = False,
+                 device="cuda"):
+        """The Detector takes `model` over: it folds its BatchNorm and
+        moves it to `device` and `compute_dtype` in place.
+
+        `ranking`: "approx" (the serving default) or "exact"; both rank
+        exactly here (ops/nms.py).
+        `max_nms`: NMS candidate budget K, 1024 by default.
+        `multi_label`: True keeps every (anchor, class) pair above conf as
+        a candidate; False keeps each anchor's argmax class only.
+        `latency_mode`: the low-latency preset, multi_label=False and
+        max_nms=256; explicitly passed values still win.
+        `device`: "cuda" (default) or "cpu"; raises without a card unless
+        the CPU is asked for."""
+        if max_nms is None:
+            max_nms = 256 if latency_mode else 1024
+        if multi_label is None:
+            multi_label = not latency_mode
+        self.device = _device(device)
+        self.cfg = model.cfg
+        self.input_size = input_size
+        self.compute_dtype = compute_dtype
+        self.model = model.fold_batchnorm().to(
+            device=self.device, dtype=compute_dtype,
+            memory_format=torch.channels_last).eval()
+        self._nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
+                         max_det=max_det, ranking=ranking, max_nms=max_nms,
+                         multi_label=multi_label)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, size: str = "n", num_classes: int = 80,
+                        **kw):
+        """Load a tpu_yolo .ckpt (EMA weights when present) or an
+        Ultralytics / reference .pt / .npz state dict."""
+        from tpu_yolo_torch.io.checkpoint import load_checkpoint
+        from tpu_yolo_torch.io.weights import from_jax_params, load_checkpoint_params
+
+        cfg = get_model_config(size, num_classes)
+        if path.endswith(".ckpt"):
+            payload = load_checkpoint(path)
+            state = from_jax_params(payload.get("ema_params") or payload["params"],
+                                    cfg)
+        else:
+            state = load_checkpoint_params(path, cfg)
+        return cls(YOLO.from_state_dict(cfg, state), **kw)
+
+    # -- host decode ------------------------------------------------------
+    def _decode_batch(self, paths: list[str], out: np.ndarray):
+        """Decode + letterbox `paths` into `out` (N, S, S, 3) uint8 RGB.
+        Returns (N, 5) metas [ratio, pad_w, pad_h, orig_w, orig_h], -1
+        for an image that failed to decode."""
+        import cv2
+
+        from tpu_yolo_torch.data.image import letterbox, load_image
+
+        metas = np.full((len(paths), 5), -1, np.float32)
+
+        def decode(i):
+            try:
+                img, (h, w) = load_image(paths[i], self.input_size)
+                boxed, ratio, pad = letterbox(img, self.input_size)
+            except (OSError, cv2.error):
+                out[i] = 0
+                return
+            out[i] = boxed[:, :, ::-1]
+            # load_image pre-scales (long side -> input_size); fold that
+            # and the letterbox ratio into one original->net scale
+            metas[i] = (ratio[0] * img.shape[1] / w, pad[0], pad[1], w, h)
+
+        with ThreadPoolExecutor(_DECODE_THREADS) as pool:
+            list(pool.map(decode, range(len(paths))))
+        return metas
+
+    # -- inference --------------------------------------------------------
+    def _predict(self, x_u8):
+        with torch.inference_mode():
+            x = x_u8.to(self.compute_dtype) / 255
+            return self.model.forward_nms(x, **self._nms)
+
+    def detect_batch(self, images_u8):
+        """(B, S, S, 3) uint8 RGB (numpy or torch) -> result dict of
+        tensors on the device, in letterbox coordinates."""
+        x = torch.as_tensor(images_u8)
+        if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
+            raise ValueError(f"detect_batch expects (B, S, S, 3) uint8, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        return self._predict(x.to(self.device, non_blocking=True))
+
+    def detect_one(self, image, rescale: bool = True) -> dict:
+        """Single-image detection. `image` is a path or an (H, W, 3) uint8
+        RGB array; returns {path, boxes (N,4) xyxy (original pixels when
+        `rescale`), scores, classes}."""
+        s = self.input_size
+        imgs = np.zeros((1, s, s, 3), np.uint8)
+        if isinstance(image, (str, os.PathLike)):
+            path = os.fspath(image)
+            metas = self._decode_batch([path], imgs)
+        else:
+            img = np.asarray(image)
+            if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+                raise ValueError(f"detect_one expects (H, W, 3) uint8 RGB, "
+                                 f"got {img.shape} {img.dtype}")
+            path = "<array>"
+            h, w = img.shape[:2]
+            # the serving decode geometry: long side -> s (up or down),
+            # then the centered round(pad -/+ 0.1) letterbox pad
+            r = s / max(h, w)
+            if r != 1:
+                import cv2
+
+                img = cv2.resize(img, (int(w * r), int(h * r)),
+                                 interpolation=cv2.INTER_LINEAR)
+            nh, nw = img.shape[:2]
+            pad_w, pad_h = (s - nw) / 2, (s - nh) / 2
+            top, left = int(round(pad_h - 0.1)), int(round(pad_w - 0.1))
+            imgs[0, top:top + nh, left:left + nw] = img
+            metas = np.array([[nw / w, pad_w, pad_h, w, h]], np.float32)
+        res = self._fetch(self.detect_batch(imgs))
+        return next(iter(self._emit(res, metas, [path], rescale)))
+
+    def stream(self, paths: Iterable[str], batch_size: int = 64,
+               rescale: bool = True) -> Iterator[dict]:
+        """Double-buffered streaming over image paths; yields one dict per
+        image: {path, boxes (N,4) xyxy original pixels, scores, classes}."""
+        paths = list(paths)
+        s = self.input_size
+        pin = self.device.type == "cuda"
+        staging = [torch.zeros((batch_size, s, s, 3), dtype=torch.uint8,
+                               pin_memory=pin) for _ in range(2)]
+        pending = None  # (fetched result, metas, batch paths)
+        for n, start in enumerate(range(0, len(paths), batch_size)):
+            chunk = paths[start:start + batch_size]
+            # staging[n % 2] is free: batch n-2's result, emitted last
+            # round, came after its copy in stream order
+            host = staging[n % 2]
+            host[len(chunk):] = 0
+            metas = self._decode_batch(chunk, host.numpy())
+            res = self._fetch(self._predict(
+                host.to(self.device, non_blocking=True)))
+            if pending is not None:
+                yield from self._emit(*pending, rescale)
+            pending = (res, metas, chunk)
+        if pending is not None:
+            yield from self._emit(*pending, rescale)
+
+    def _fetch(self, res):
+        """Start copying a result to the host; returns (tensors, event).
+        On the card the copy is asynchronous into pinned memory, and the
+        event marks its end."""
+        if self.device.type != "cuda":
+            return res, None
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                .copy_(v, non_blocking=True) for k, v in res.items()}
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _emit(self, fetched, metas, chunk, rescale):
+        res, done = fetched
+        if done is not None:
+            done.synchronize()
+        res = {k: v.numpy() for k, v in res.items()}
+        for i, path in enumerate(chunk):
+            n = int(res["count"][i])
+            if metas[i, 0] < 0:  # decode failure
+                yield {"path": path, "boxes": np.zeros((0, 4), np.float32),
+                       "scores": np.zeros(0, np.float32),
+                       "classes": np.zeros(0, np.int32), "error": "decode"}
+                continue
+            boxes = np.array(res["boxes"][i][:n], np.float32)
+            if rescale and n:
+                r, pw, ph, ow, oh = metas[i][:5]
+                boxes[:, [0, 2]] = ((boxes[:, [0, 2]] - pw) / r).clip(0, ow)
+                boxes[:, [1, 3]] = ((boxes[:, [1, 3]] - ph) / r).clip(0, oh)
+            yield {"path": path, "boxes": boxes,
+                   "scores": np.array(res["scores"][i][:n], np.float32),
+                   "classes": np.array(res["classes"][i][:n], np.int32)}
