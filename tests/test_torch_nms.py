@@ -135,8 +135,9 @@ def _assert_same(mine, ref, keys=("count", "valid", "classes")):
     assert v.any()
 
 
-# 64 px: A = 84 anchors, so max_nms < 84 ranks through the pre-gate and
-# max_nms >= 84 flat over the (B, A*nc) matrix
+# 64 px: A = 84 anchors, so max_nms < 84 ranks through a pre-gate that
+# cuts anchors and max_nms >= 84 through one that keeps them all, which
+# the JAX package ranks flat over the (B, A*nc) matrix
 PATHS = {
     "pregated": dict(max_nms=32),
     "flat": dict(max_nms=128),

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from tpu_yolo_torch.core.config import ModelConfig
-from tpu_yolo_torch.ops.anchors import make_anchors
+from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.blocks import CSP, PSA, SPPF
 from tpu_yolo_torch.ops.boxes import dfl_decode
 from tpu_yolo_torch.ops.nn import ConvBN, identity, upsample2x
@@ -263,8 +263,8 @@ class YOLO(nn.Module):
         b = raw_maps[0].shape[0]
         flat = torch.cat([m.reshape(b, -1, cfg.no) for m in raw_maps], 1)
         dist, cls = flat.split((4 * cfg.reg_max, cfg.num_classes), -1)
-        anchors, stride_t = (torch.from_numpy(a).to(flat.device)
-                             for a in make_anchors(input_hw, cfg.strides))
+        anchors, stride_t = device_anchors(tuple(input_hw), tuple(cfg.strides),
+                                          flat.device)
         box = dfl_decode(dist, anchors, cfg.reg_max, xywh=True) * stride_t
         return torch.cat((box, torch.sigmoid(cls.float())), -1)
 

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from tpu_yolo_torch.ops.anchors import make_anchors
+from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.boxes import dfl_decode, xywh_to_xyxy
 from tpu_yolo_torch.ops.nms_cuda import MAX_K, greedy_keep
 
@@ -49,16 +49,19 @@ def _check_ranking(ranking: str):
 def _rank_candidates_pregated(scores3, k: int):
     """Top-K (score, anchor, class) over a (B, A, nc) score tensor through
     a per-anchor pre-gate: rank anchors by their max class score (ties to
-    the lower anchor), keep the top K in ascending anchor order, and rank
-    their K*nc candidates. If (a, c) is among the global top-K
+    the lower anchor), keep the top min(A, K) in ascending anchor order,
+    and rank their candidates. If (a, c) is among the global top-K
     candidates, anchor a is among the top-K anchors, and the local flat
     order is order-isomorphic to the global one, so the selection equals
-    the flat ranking bit for bit (the JAX package's theorem)."""
+    the flat ranking over (B, A*nc) bit for bit (the JAX package's
+    theorem); with A <= K the gate keeps every anchor and is that
+    ranking."""
     b, a, nc = scores3.shape
-    _, aidx = _top_k(scores3.amax(-1), k)
-    aidx = aidx.sort(-1).values                                 # (B, K) asc
-    rows = torch.gather(scores3, 1, aidx[..., None].expand(b, k, nc))
-    scores, local = _top_k(rows.reshape(b, k * nc), k)
+    ka = min(a, k)
+    _, aidx = _top_k(scores3.amax(-1), ka)
+    aidx = aidx.sort(-1).values                                # (B, ka) asc
+    rows = torch.gather(scores3, 1, aidx[..., None].expand(b, ka, nc))
+    scores, local = _top_k(rows.reshape(b, ka * nc), k)
     anchor_idx = torch.gather(aidx, 1, local // nc)
     return scores, anchor_idx, local % nc
 
@@ -77,17 +80,10 @@ def _budget(max_nms: int, a: int, nc: int, multi_label: bool) -> int:
 
 def _rank(scores3, k: int, multi_label: bool):
     """The top-K candidates of a (B, A, nc) score tensor -> (scores,
-    anchor_idx, cls_idx), each (B, K), score-descending. Multi-label
-    ranking goes through the per-anchor pre-gate whenever it cuts the
-    sort (A > K), flat over the (B, A*nc) matrix otherwise; both give the
-    same selection."""
-    b, a, nc = scores3.shape
-    if not multi_label:
-        return _rank_candidates_singlelabel(scores3, k)
-    if a > k:
+    anchor_idx, cls_idx), each (B, K), score-descending."""
+    if multi_label:
         return _rank_candidates_pregated(scores3, k)
-    top, idx = _top_k(scores3.reshape(b, a * nc), k)
-    return top, idx // nc, idx % nc
+    return _rank_candidates_singlelabel(scores3, k)
 
 
 def batched_nms(preds, conf_thres: float = 0.001, iou_thres: float = 0.65,
@@ -145,8 +141,8 @@ def nms_from_raw(raw_maps, cfg, input_hw, conf_thres: float = 0.001,
     top_logits, anchor_idx, cls_idx = _rank(logits, k, multi_label)
     top_scores = torch.sigmoid(top_logits.float())
 
-    anchors, stride_t = (torch.from_numpy(t).to(logits.device)
-                         for t in make_anchors(input_hw, cfg.strides))
+    anchors, stride_t = device_anchors(tuple(input_hw), tuple(cfg.strides),
+                                       logits.device)
     boxes, off = [], 0
     for m in raw_maps:
         al = m.shape[1] * m.shape[2]
