@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernels from tpu_yolo_torch/csrc, holds each
+Builds the port's three CUDA kernels from tpu_yolo_torch/csrc, holds each
 against its plain PyTorch version, serves YOLOv11-n at 640 px through
-`Detector`, and checks the result against the port on the CPU. Each
+`Detector` and checks the result against the port on the CPU, then
+trains YOLOv11-n at 640 px and batch 64 in bf16 (one epoch of
+`trainer.train` on a seeded mini-COCO, then timed `train_step`s) and
+checks an f32 training step's losses and gradients against the CPU. Each
 phase prints one JSON line; the line before the last lists the kernels
 with their launches on the main path, errors, times and bounds, and the
 last line is {"ok": true, "device": {...}}. Any failed check raises, so
@@ -19,9 +22,12 @@ outputs depend on the image and NMS sees candidates.
 """
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -29,7 +35,10 @@ import numpy as np
 
 SEED = 0
 BATCH = 128          # serving batch
+TRAIN_BATCH = 64     # training batch
+TRAIN_IMAGES = 128   # images of the seeded mini-COCO: two steps an epoch
 SIZE = 640           # input pixels
+TOP_K = 10           # the assigner's k
 HBM_BYTES_S = 3.35e12                       # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}        # atol and rtol
@@ -86,6 +95,13 @@ def nms_cost(boxes, cls, valid):
     return _bound(nbytes, pairs * IOU_FLOPS_PER_PAIR, PEAK_FLOPS["float32"])
 
 
+def topk_cost(x):
+    """(bound_ms, bound_by) of the top-k mask: x read once (4 bytes an
+    entry) and the mask written once (1 byte); about k comparisons an
+    entry at the f32 rate."""
+    return _bound(5 * x.numel(), TOP_K * x.numel(), PEAK_FLOPS["float32"])
+
+
 def _bound(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -108,7 +124,7 @@ def main() -> int:
 
     from tpu_yolo_torch.core.config import get_model_config
     from tpu_yolo_torch.models.yolov11 import YOLO
-    from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda
+    from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda, topk_cuda
     from tpu_yolo_torch.seeded import seeded_images, serving_state
     from tpu_yolo_torch.serve import Detector
 
@@ -124,11 +140,12 @@ def main() -> int:
          have_cv2=importlib.util.find_spec("cv2") is not None,
          have_yaml=importlib.util.find_spec("yaml") is not None)
 
-    # (b) build both kernels, one nvcc each, in parallel
+    # (b) build the three kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         reports = list(pool.map(lambda build: build(),
-                                (attention_cuda.build, nms_cuda.build)))
+                                (attention_cuda.build, nms_cuda.build,
+                                 topk_cuda.build)))
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          ptxas=[line.strip() for r in reports for line in r.splitlines()
                 if "registers" in line or "spill" in line])
@@ -169,6 +186,37 @@ def main() -> int:
                              equal=same))
         check(same, f"NMS kernel vs plain on {scene} B={b} K={k}")
     emit("nms_check", cases=nms_rows)
+
+    # (d2) top-k kernel against topk_mask_plain, bit for bit
+    topk_rng = np.random.default_rng(SEED + 2)
+    topk_rows = []
+    for shape, ties in (((64, 64, 8400), False), ((2, 512, 8400), False),
+                        ((3, 7, 57), False), ((4, 9, 8400), True),
+                        ((1, 8, 25200), False)):
+        x = topk_rng.random(shape).astype(np.float32)
+        if ties:  # quantized values, all-zero rows, -0.0 among the +0.0
+            x = np.round(x * 4) / 4
+            x[:, -2:] = 0.0
+            x[:, -1, ::3] *= -1.0
+        x_cpu = torch.from_numpy(x)
+        x = x_cpu.to(dev)
+        got = topk_cuda.topk_mask(x, TOP_K)
+        want = topk_cuda.topk_mask_plain(x, TOP_K)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        row = dict(shape=list(shape), ties=ties, selected=int(got.sum()), equal=same)
+        if ties:
+            # argmax's first-index promise on the card, against the CPU, and
+            # the padded-row case: an all-zero row selects anchors 0..k-1
+            row["plain_card_equals_plain_cpu"] = torch.equal(
+                want.cpu(), topk_cuda.topk_mask_plain(x_cpu, TOP_K))
+            row["zero_rows_select_first_k"] = bool(got[:, -2:, :TOP_K].all())
+            same = (same and row["plain_card_equals_plain_cpu"]
+                    and row["zero_rows_select_first_k"])
+        topk_rows.append(row)
+        check(same and row["selected"] == TOP_K * shape[0] * shape[1],
+              f"top-k kernel vs plain: {row}")
+    emit("topk_check", cases=topk_rows)
 
     # (e) the main path: Detector serving v11-n at 640 px, bs128
     cfg = get_model_config("n")
@@ -282,6 +330,13 @@ def main() -> int:
                   and agree["max_score_err"] <= 5e-4, f"f32 agreement: {row}")
     torch.backends.cudnn.allow_tf32 = True
 
+    # (h) the training path: one epoch through trainer.train, then
+    # train_step on one seeded batch, v11-n at 640 px, bs64, bf16
+    _train_phase(cfg, dev, smi, captured, launches)
+
+    # (i) one f32 training step's losses and gradients, card against CPU
+    _train_f32_phase(cfg, dev, imgs[:2])
+
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
         kernels = _kernel_rows(captured, launches)
@@ -292,11 +347,216 @@ def main() -> int:
     return 0
 
 
+def _train_phase(cfg, dev, smi, captured, launches):
+    """Phase (h). Fills captured["topk"] and launches["topk"] (per step)."""
+    import torch
+
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.io.checkpoint import load_checkpoint
+    from tpu_yolo_torch.io.weights import from_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
+    from tpu_yolo_torch.seeded import seeded_train_batch, write_mini_coco
+    from tpu_yolo_torch.train import loss as loss_mod
+    from tpu_yolo_torch.train import trainer
+    from tpu_yolo_torch.train.step import train_step
+
+    hyp = load_hyperparams()
+    assigner_fn, topk_fn = loss_mod.task_aligned_assigner, loss_mod.topk_mask
+    calls = {"assigner": 0}
+
+    def assigner_tap(*a, **kw):
+        calls["assigner"] += 1
+        return assigner_fn(*a, **kw)
+
+    def topk_tap(x, k):
+        captured["topk"] = x
+        return topk_fn(x, k)
+
+    def zero_counts():
+        calls["assigner"] = 0
+        for fn in (topk_cuda.topk_mask, attention_cuda.fused_attention,
+                   nms_cuda.greedy_keep):
+            fn.launches = 0
+
+    # -- one epoch through the normal entry point ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data_dir = write_mini_coco(os.path.join(tmp, "coco"), TRAIN_IMAGES,
+                                   hw=(480, 640), seed=SEED)
+        write_s = time.perf_counter() - t0
+        args = argparse.Namespace(
+            model_size="n", input_size=SIZE, batch_size=TRAIN_BATCH, epochs=1,
+            data_dir=data_dir, save_dir=os.path.join(tmp, "weights"), resume="",
+            weights="", workers=8, gt_bucket=0, remat=False, remat_level="stage",
+            tensorboard=False)
+        loss_mod.task_aligned_assigner = assigner_tap
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            state = trainer.train(args, hyp, cfg, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            loss_mod.task_aligned_assigner = assigner_fn
+        epoch_s = time.perf_counter() - t0
+        epoch_launches = topk_cuda.topk_mask.launches
+        with open(os.path.join(args.save_dir, "step.csv")) as f:
+            csv_rows = f.read().strip().splitlines()
+        stripped = load_checkpoint(os.path.join(args.save_dir, "last.ckpt"))
+
+    steps = TRAIN_IMAGES // TRAIN_BATCH
+    accumulate = max(round(64 / TRAIN_BATCH), 1)   # the trainer's rule
+    check(state.step == steps
+          and state.ema_updates == len(range(0, steps, accumulate)),
+          f"trainer took {state.step} steps, {state.ema_updates} updates")
+    check(epoch_launches > 0 and epoch_launches == calls["assigner"] == steps,
+          f"top-k launches {epoch_launches}, assigner calls {calls['assigner']}")
+    check(len(csv_rows) == 2 and all(
+        np.isfinite(float(v)) for v in csv_rows[1].split(",")[1:4]),
+        f"step.csv: {csv_rows}")
+
+    def moved(now, before):
+        return max(float((now[k].float().cpu() - before[k]).abs().max())
+                   for k in before)
+
+    init = from_jax_params(init_params(0, cfg), cfg)
+    sd = state.model.state_dict()
+    stats = {k: v for k, v in init.items() if k.endswith((".mean", ".var"))}
+    weights = {k: v for k, v in init.items() if k not in stats}
+    movement = dict(bn_stats=moved(sd, stats), params=moved(sd, weights),
+                    ema=moved(state.ema, init))
+    check(min(movement.values()) > 0, f"something did not move: {movement}")
+    check(all(bool(torch.isfinite(v).all()) for v in sd.values()),
+          "non-finite weights after the epoch")
+    # last.ckpt read back: the final strip keeps the EMA in fp16
+    back = YOLO.from_state_dict(cfg, from_jax_params(stripped["params"], cfg))
+    ckpt_err = max(float((v - state.ema[k].cpu()).abs().max()
+                         / state.ema[k].abs().max().clamp(min=1).cpu())
+                   for k, v in back.state_dict().items())
+    check(set(stripped) == {"epoch", "best", "params", "meta"}
+          and stripped["epoch"] == 1 and ckpt_err < 1e-3,
+          f"last.ckpt read back: {sorted(stripped)}, err {ckpt_err}")
+
+    # -- train_step on one seeded batch, counted and timed -----------------
+    images, gt = (torch.from_numpy(a).to(dev) for a in
+                  seeded_train_batch(np.random.default_rng(SEED), TRAIN_BATCH, SIZE))
+    gains = [hyp["box"], hyp["cls"], hyp["dfl"]]
+
+    def step():
+        return train_step(state, images, gt, 1e-4, gains, hyp["weight_decay"],
+                          hyp["momentum"], cfg=cfg)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    loss_mod.task_aligned_assigner, loss_mod.topk_mask = assigner_tap, topk_tap
+    zero_counts()
+    try:
+        losses = step()
+        torch.cuda.synchronize()
+    finally:
+        loss_mod.task_aligned_assigner, loss_mod.topk_mask = assigner_fn, topk_fn
+    launches["topk"] = topk_cuda.topk_mask.launches
+    check(launches["topk"] > 0 and launches["topk"] == calls["assigner"],
+          f"top-k launches {launches['topk']} in a step, assigner calls "
+          f"{calls['assigner']}")
+    check(attention_cuda.fused_attention.launches == 0,
+          "the training forward went through the inference attention kernel")
+    check(bool(torch.isfinite(losses).all()), f"losses {losses.tolist()}")
+
+    iters = 10
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ms = cuda_ms(step, iters=iters, warmup=0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    last = step()
+    check(bool(torch.isfinite(last).all()), f"losses {last.tolist()}")
+    emit("train", model="v11-n", size=SIZE, batch=TRAIN_BATCH, dtype="bfloat16",
+         nvidia_smi=smi, epoch=dict(
+             images=TRAIN_IMAGES, steps=steps, seconds=epoch_s,
+             write_images_seconds=write_s, topk_launches=epoch_launches,
+             assigner_calls=steps, step_csv=csv_rows[1], moved=movement,
+             last_ckpt_vs_ema_max_rel_err=ckpt_err),
+         train_step=dict(
+             gt_bucket=gt.shape[1], topk_shape=list(captured["topk"].shape),
+             topk_launches_per_step=launches["topk"], losses=losses.tolist(),
+             losses_after=last.tolist(), device_ms_per_step=ms,
+             wall_ms_per_step=wall_ms, img_per_s=TRAIN_BATCH / wall_ms * 1e3,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+
+def _train_f32_phase(cfg, dev, two_images):
+    """Phase (i): loss_and_grads on 2 images in f32, TF32 off, on the card
+    and on the CPU."""
+    import torch
+
+    from tpu_yolo_torch.io.weights import from_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+    from tpu_yolo_torch.seeded import seeded_train_batch
+    from tpu_yolo_torch.train import loss as loss_mod
+    from tpu_yolo_torch.train.step import loss_and_grads
+
+    _, gt = seeded_train_batch(np.random.default_rng(SEED + 1), 2, SIZE, max_boxes=12)
+    sd = from_jax_params(init_params(SEED, cfg), cfg)
+    assigner_fn = loss_mod.task_aligned_assigner
+    fg = {}
+
+    def run(device):
+        def tap(*a, **kw):
+            out = assigner_fn(*a, **kw)
+            fg[device] = out[2].cpu()
+            return out
+
+        model = YOLO.from_state_dict(cfg, sd).to(
+            device=device, memory_format=torch.channels_last).train()
+        loss_mod.task_aligned_assigner = tap
+        try:
+            losses, grads = loss_and_grads(
+                model, torch.from_numpy(two_images).to(device),
+                torch.from_numpy(gt).to(device), [7.5, 0.5, 1.5], cfg=cfg)
+        finally:
+            loss_mod.task_aligned_assigner = assigner_fn
+        return ([float(v) for v in losses],
+                {k: v.float().cpu() for k, v in grads.items()})
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card_losses, card_grads = run("cuda")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    cpu_losses, cpu_grads = run("cpu")
+
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    # a gradient leaf's error against its largest entry (floor 1e-5: leaves
+    # whose gradient is zero hold rounding noise); cuDNN's backward sums
+    # in another order than the CPU's
+    rel = {k: float((card_grads[k] - v).abs().max() / v.abs().max().clamp(min=1e-5))
+           for k, v in cpu_grads.items()}
+    worst = max(rel, key=rel.get)
+    median = float(np.median(list(rel.values())))
+    fg_equal = torch.equal(fg["cuda"], fg["cpu"])
+    emit("train_f32_card_vs_cpu", images=2, losses_card=card_losses,
+         losses_cpu=cpu_losses, max_loss_rel_err=loss_err, fg_anchors=int(fg["cpu"].sum()),
+         fg_mask_equal=fg_equal, grad_leaves=len(rel), grad_worst_leaf=worst,
+         grad_worst_rel_err=rel[worst], grad_median_rel_err=median,
+         threshold="losses within 1e-4 relative; fg mask equal; every gradient "
+                   "leaf within 2e-2 of its largest entry, median within 1e-3")
+    check(loss_err <= 1e-4 and fg_equal and rel[worst] <= 2e-2 and median <= 1e-3,
+          f"f32 training step, card vs CPU: loss {loss_err}, fg equal {fg_equal}, "
+          f"worst gradient {worst} {rel[worst]}, median {median}")
+
+
 def _kernel_rows(captured, launches):
     import torch
     import torch.nn.functional as F
 
-    from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
 
     q, k, v, scale = captured["attention"]
     got = attention_cuda.fused_attention(q, k, v, scale)
@@ -338,6 +598,29 @@ def _kernel_rows(captured, launches):
         plain_ms=cuda_ms(lambda: nms_cuda.greedy_keep_plain(boxes, cls, valid, thr),
                          iters=5),
         bound_ms=bound, bound_by=bound_by, library_ms=None))
+
+    x = captured["topk"]
+    got = topk_cuda.topk_mask(x, TOP_K)
+    want = topk_cuda.topk_mask_plain(x, TOP_K)
+    check(torch.equal(got, want), "top-k kernel vs plain at the main-path inputs")
+    bound, bound_by = topk_cost(x)
+
+    def library():  # tie order not promised: a yardstick of speed only
+        idx = torch.topk(x, TOP_K, dim=-1).indices
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device).scatter_(
+            -1, idx, True)
+
+    kernels.append(dict(
+        name="assigner_topk_mask", route="cuda",
+        source="tpu_yolo_torch/csrc/topk_mask.cu",
+        replaces="tpu_yolo/ops/topk_pallas.py:78",
+        shape=dict(b=x.shape[0], n=x.shape[1], a=x.shape[2], k=TOP_K,
+                   nonzero=int((x > 0).sum()), selected=int(got.sum())),
+        launches=launches["topk"],
+        max_abs_err=float((got.int() - want.int()).abs().max()),
+        ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),
+        plain_ms=cuda_ms(lambda: topk_cuda.topk_mask_plain(x, TOP_K), iters=5),
+        bound_ms=bound, bound_by=bound_by, library_ms=cuda_ms(library, iters=5)))
     return kernels
 
 

@@ -55,7 +55,7 @@ def test_attention_block_matches_jax():
     want = jax_blocks.attention(params, jnp.asarray(x), Context(train=False),
                                 "attn", heads)
 
-    block = Attention(ch, heads)
+    block = Attention(ch, heads).eval()
     block.load_state_dict({
         ".".join(path): torch.from_numpy(
             a.transpose(3, 2, 0, 1).copy() if a.ndim == 4 else a)

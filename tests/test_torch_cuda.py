@@ -16,6 +16,7 @@ from tpu_yolo_torch.io.weights import from_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params
 from tpu_yolo_torch.ops.attention_cuda import attention_plain, fused_attention
 from tpu_yolo_torch.ops.nms_cuda import greedy_keep, greedy_keep_plain
+from tpu_yolo_torch.ops.topk_cuda import topk_mask, topk_mask_plain
 from tpu_yolo_torch.serve import Detector
 
 
@@ -79,6 +80,38 @@ def test_nms_kernel_equals_plain(cuda, b, k, clustered):
     assert torch.equal(got, greedy_keep_plain(boxes, cls, valid, 0.65))
 
 
+@pytest.mark.parametrize("shape,ties", [((64, 64, 8400), False),
+                                        ((2, 512, 8400), False),
+                                        ((3, 7, 57), False),
+                                        ((4, 9, 8400), True),
+                                        ((1, 8, 25200), False),
+                                        ((2, 3, 7), False)])
+def test_topk_kernel_equals_plain(cuda, shape, ties):
+    """Bit-equal: only comparisons touch the values. The tie case has
+    quantized values, signed zeros and all-zero rows (which must select
+    anchors 0..k-1); (2, 3, 7) has rows shorter than k."""
+    x = np.random.default_rng(shape[1]).random(shape).astype(np.float32)
+    if ties:
+        x = np.round(x * 4) / 4
+        x[:, -2:] = 0.0
+        x[:, -1, ::3] *= -1.0                # -0.0 among the +0.0
+    x = torch.from_numpy(x).to(cuda)
+    before = topk_mask.launches
+    got = topk_mask(x, 10)
+    torch.cuda.synchronize()
+    assert topk_mask.launches == before + 1
+    assert torch.equal(got, topk_mask_plain(x, 10))
+    assert torch.equal(got.cpu(), topk_mask_plain(x.cpu(), 10))
+    if ties:
+        assert bool(got[:, -1, :10].all()) and int(got[:, -1].sum()) == 40
+
+
+def test_topk_kernel_refuses_a_row_beyond_shared_memory(cuda):
+    x = torch.zeros(1, 1, 58081, device=cuda)
+    with pytest.raises(ValueError, match="58080"):
+        topk_mask(x, 10)
+
+
 def test_detector_runs_both_kernels(cuda):
     cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
                       csp=(False, True), num_classes=8)
@@ -93,6 +126,34 @@ def test_detector_runs_both_kernels(cuda):
     torch.cuda.synchronize()
     assert fused_attention.launches > attn and greedy_keep.launches > keep
     assert int(res["count"].min()) > 0
+
+
+def test_bf16_train_step_runs_the_topk_kernel(cuda):
+    """Three bf16 train steps on a narrow model: one top-k launch a step,
+    none of the inference attention kernel, finite losses, and BN
+    statistics, parameters and EMA that move."""
+    from tpu_yolo_torch.seeded import seeded_train_batch
+    from tpu_yolo_torch.train.step import init_train_state, train_step
+
+    cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
+                      csp=(False, True), num_classes=8)
+    model = YOLO.from_state_dict(cfg, from_jax_params(init_params(0, cfg), cfg))
+    state = init_train_state(model.to(device=cuda, memory_format=torch.channels_last))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    images, gt = (torch.from_numpy(a).to(cuda) for a in seeded_train_batch(
+        np.random.default_rng(0), 8, 128, max_boxes=6, num_classes=8))
+    topk, attn = topk_mask.launches, fused_attention.launches
+    for remat in (False, "stage", "blocks"):
+        losses = train_step(state, images, gt, 0.001, [7.5, 0.5, 1.5], 5e-4, 0.937,
+                            cfg=cfg, remat=remat)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(losses).all()), (remat, losses)
+    assert topk_mask.launches == topk + 3 and fused_attention.launches == attn
+    after = model.state_dict()
+    for leaf in ("net.p1.0.w", "net.p1.0.gamma", "net.p1.0.mean", "net.p1.0.var"):
+        assert not torch.equal(after[leaf], before[leaf]), leaf
+    assert not torch.equal(state.ema["net.p1.0.w"], before["net.p1.0.w"])
+    assert state.step == 3 and state.ema_updates == 3
 
 
 def test_stream_on_the_card_equals_detect_one(cuda, tmp_path):

@@ -158,7 +158,7 @@ def test_fold_input_scale_matches_jax():
     params = jax_yolo.init_params(6, jax_config("n"))
     want = dict(_leaves(jax_yolo.fold_input_scale(params)))["/net/p1/0/w"]
     model = YOLO.from_state_dict(cfg, from_jax_params(params, cfg))
-    got = model.fold_input_scale().net["p1"][0].w.numpy()
+    got = model.fold_input_scale().net["p1"][0].w.detach().numpy()
     assert np.array_equal(got, np.asarray(want).transpose(3, 2, 0, 1))
 
 

@@ -1,20 +1,26 @@
-"""tpu_yolo_torch — YOLOv11 serving in PyTorch on an NVIDIA H100.
+"""tpu_yolo_torch — YOLOv11 serving and training in PyTorch on an NVIDIA
+H100.
 
 The PyTorch/CUDA port of `tpu_yolo`, which stays the reference. It
 imports torch and numpy only, never JAX or `tpu_yolo`. Convolutions go
-through cuDNN; the two kernels that `tpu_yolo` wrote in Pallas for the
-TPU on the serving path are CUDA C++ kernels for sm_90a here, built
-from `csrc/` with nvcc at their first launch:
+through cuDNN; the three kernels that `tpu_yolo` wrote in Pallas for the
+TPU are CUDA C++ kernels for sm_90a here, built from `csrc/` with nvcc
+at their first launch:
 
-  ops/attention_cuda.py  csrc/attention.cu  PSA attention
+  ops/attention_cuda.py  csrc/attention.cu  PSA attention (inference)
   ops/nms_cuda.py        csrc/nms_keep.cu   NMS greedy keep
+  ops/topk_cuda.py       csrc/topk_mask.cu  the assigner's top-k mask
 
 Package layout:
   core/    model configs and hyperparameters
-  ops/     conv/pool/upsample, blocks, anchors, DFL decode, NMS, kernels
+  ops/     conv/BN/pool/upsample, blocks, anchors, boxes, NMS, kernels
   models/  the YOLOv11 graph (n/t/s/m/l/x) as an nn.Module
-  io/      JAX param trees, torch/Ultralytics state dicts, .ckpt files
-  data/    host image decode and letterbox
+  io/      JAX param trees and train states, torch/Ultralytics state
+           dicts, .ckpt files (read and written)
+  data/    image decode and letterbox, labels, augmentation, dataset,
+           loader
+  train/   loss and assigner, optimizer and EMA, train step, trainer
+  cli/     `python -m tpu_yolo_torch.cli.main --train`
   serve.py the Detector
 """
 
@@ -26,12 +32,17 @@ from tpu_yolo_torch.core.config import (  # noqa: E402
     get_model_config,
     load_hyperparams,
 )
-from tpu_yolo_torch.io.checkpoint import load_checkpoint  # noqa: E402
+from tpu_yolo_torch.io.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+    strip_checkpoint,
+)
 from tpu_yolo_torch.io.weights import (  # noqa: E402
     convert_state_dict,
     from_jax_params,
     load_checkpoint_params,
     load_torch_state_dict,
+    to_jax_params,
 )
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params  # noqa: E402
 from tpu_yolo_torch.ops.nms import batched_nms, nms_from_raw  # noqa: E402
@@ -39,7 +50,8 @@ from tpu_yolo_torch.serve import Detector  # noqa: E402
 
 __all__ = [
     "MODEL_CONFIGS", "ModelConfig", "get_model_config", "load_hyperparams",
-    "load_checkpoint", "convert_state_dict", "from_jax_params",
+    "load_checkpoint", "save_checkpoint", "strip_checkpoint",
+    "convert_state_dict", "from_jax_params", "to_jax_params",
     "load_checkpoint_params", "load_torch_state_dict", "YOLO", "init_params",
     "batched_nms", "nms_from_raw", "Detector",
 ]

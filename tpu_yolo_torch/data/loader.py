@@ -1,0 +1,109 @@
+"""Multi-threaded prefetching data loader: the port's own copy of
+`tpu_yolo/data/loader.py` (numpy only; the same batches from the same
+seeds). OpenCV decode/warp releases the GIL, so a thread pool uses the
+host cores without multiprocessing overhead; batches are prefetched into
+a bounded queue so host preprocessing overlaps device steps.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from tpu_yolo_torch.data.dataset import collate
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 8, drop_last: bool = False,
+                 prefetch: int = 4, seed: int = 0, sampler=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self.seed = seed
+        self.epoch = 0
+        self.sampler = sampler  # optional per-host shard sampler
+
+    def set_epoch(self, epoch: int):
+        """Reshuffle seed per epoch (reference DistributedSampler.set_epoch,
+        main.py:107-108)."""
+        self.epoch = epoch
+
+    def _indices(self):
+        if self.sampler is not None:
+            return list(self.sampler.indices(self.epoch))
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(idx)
+        return idx.tolist()
+
+    def __len__(self):
+        n = len(self._indices())
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self):
+        indices = self._indices()
+        batches = [indices[i:i + self.batch_size]
+                   for i in range(0, len(indices), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def produce():
+            with ThreadPoolExecutor(max(self.num_workers, 1)) as pool:
+                try:
+                    for batch_idx in batches:
+                        if stop.is_set():
+                            return
+                        samples = list(pool.map(self.dataset.__getitem__, batch_idx))
+                        q.put(collate(samples))
+                finally:
+                    q.put(None)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                yield item
+        finally:
+            stop.set()
+            # drain so the producer can exit
+            while worker.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+
+
+class ShardSampler:
+    """Deterministic per-host shard of the index space for multi-host data
+    parallelism (reference DistributedSampler, main.py:69-70). Each host
+    sees an equal-size, padded shard; reshuffled by epoch."""
+
+    def __init__(self, n: int, num_shards: int, shard: int, shuffle: bool = True,
+                 seed: int = 0):
+        self.n = n
+        self.num_shards = num_shards
+        self.shard = shard
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def indices(self, epoch: int):
+        idx = np.arange(self.n)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + epoch)
+            rng.shuffle(idx)
+        per = -(-self.n // self.num_shards)
+        padded = np.concatenate([idx, idx[: per * self.num_shards - self.n]])
+        return padded[self.shard::self.num_shards]

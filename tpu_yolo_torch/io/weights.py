@@ -1,6 +1,11 @@
-"""Weights into the port's YOLO module.
+"""Weights into and out of the port's YOLO module.
 
-Three sources:
+Out: `to_jax_params` (a state dict -> the JAX-layout tree) and
+`train_state_to_jax` / `train_state_from_jax`, which carry a whole train
+state (params, momentum, accumulated gradients, step, EMA) between the
+port and the JAX package's tree layout, the payload of a `.ckpt` file.
+
+In, three sources:
   * `from_jax_params`: a JAX-layout param tree of numpy arrays (what
     `tpu_yolo` and `models.yolov11.init_params` build, and what `.ckpt`
     files hold) -> a state dict. A key is the tree path joined with dots;
@@ -265,6 +270,84 @@ def from_jax_params(params, cfg) -> dict[str, torch.Tensor]:
         state[".".join(path)] = torch.from_numpy(np.array(a))
     folded = not any(k.endswith(".gamma") for k in state)
     _check_coverage(state, _template(cfg, folded))
+    return state
+
+
+def to_jax_params(state_dict) -> dict:
+    """The inverse of `from_jax_params`: a model or a state dict (name ->
+    tensor or array) -> the JAX-layout tree of float32 numpy arrays
+    (nested dicts, lists where the keys are indices, conv kernels OIHW ->
+    HWIO)."""
+    if isinstance(state_dict, torch.nn.Module):
+        state_dict = state_dict.state_dict()
+    root: dict = {}
+    for name, t in state_dict.items():
+        a = np.asarray(t.detach().cpu().float() if isinstance(t, torch.Tensor)
+                       else t, dtype=np.float32)
+        path = name.split(".")
+        if path[-1] == "w" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def train_state_to_jax(state) -> dict:
+    """A `train.step.TrainState` -> the JAX package's train state as numpy
+    trees: {'params', 'opt': {'momentum'[, 'accum']}, 'step',
+    'ema_updates', 'ema_params'}. The JAX package keeps momentum and
+    accumulation leaves for the BN running statistics too (never
+    touched): they are written as zeros."""
+    sd = state.model.state_dict()
+
+    def full(per_param):
+        return to_jax_params({n: per_param[n] if n in per_param
+                              else torch.zeros_like(t) for n, t in sd.items()})
+
+    opt = {"momentum": full(state.momentum)}
+    if state.accum is not None:
+        opt["accum"] = full(state.accum)
+    return {"params": to_jax_params(sd), "opt": opt,
+            "step": np.asarray(state.step, np.int32),
+            "ema_updates": np.asarray(state.ema_updates, np.int32),
+            "ema_params": None if state.ema is None else to_jax_params(state.ema)}
+
+
+def train_state_from_jax(tree: dict, cfg, device="cpu", accumulate: int = 1):
+    """The inverse: a JAX train state (numpy trees, as a `.ckpt` holds it)
+    -> a `TrainState` on `device`. `accumulate` > 1 gives the state its
+    accumulation buffers, from the tree when it has them, else zeros."""
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.train.step import init_train_state
+
+    model = YOLO.from_state_dict(cfg, from_jax_params(tree["params"], cfg))
+    model = model.to(device=device, memory_format=torch.channels_last)
+    state = init_train_state(model, ema=tree.get("ema_params") is not None,
+                             accumulate=accumulate)
+
+    def fill(dst, src_tree):
+        src = from_jax_params(src_tree, cfg)
+        with torch.no_grad():
+            for n, t in dst.items():
+                t.copy_(src[n])
+
+    fill(state.momentum, tree["opt"]["momentum"])
+    if state.accum is not None and "accum" in tree["opt"]:
+        fill(state.accum, tree["opt"]["accum"])
+    if state.ema is not None:
+        fill(state.ema, tree["ema_params"])
+    state.step = int(tree["step"])
+    state.ema_updates = int(tree["ema_updates"])
     return state
 
 

@@ -20,7 +20,7 @@ from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.blocks import CSP, PSA, SPPF
 from tpu_yolo_torch.ops.boxes import dfl_decode
-from tpu_yolo_torch.ops.nn import ConvBN, identity, upsample2x
+from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, upsample2x
 
 # ---------------------------------------------------------------------------
 # Initialization: a numpy copy of the JAX package's init_params. The same
@@ -173,7 +173,9 @@ def _down(cin, cout):
 
 class YOLO(nn.Module):
     """YOLOv11 of one size. Built with unfolded BatchNorm; `fold_batchnorm`
-    folds it in place. Inference only."""
+    folds it in place. A new model is in eval mode, since serving is the
+    common use; in training mode (`model.train()`) BatchNorm uses batch
+    statistics and the attention takes its differentiable form."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -218,6 +220,7 @@ class YOLO(nn.Module):
                 ConvBN(cls_ch, nc, act=identity, folded=True),
             ]) for f in filters]),
         })
+        self.eval()
 
     @classmethod
     def from_state_dict(cls, cfg: ModelConfig, state_dict) -> "YOLO":
@@ -229,33 +232,55 @@ class YOLO(nn.Module):
         model.load_state_dict(state_dict, strict=True)
         return model
 
-    def forward_raw(self, x):
-        """NHWC images -> list of 3 NHWC maps (B, H/s, W/s, 4*reg_max + nc)."""
+    def forward_raw(self, x, remat=False):
+        """NHWC images -> list of 3 NHWC maps (B, H/s, W/s, 4*reg_max + nc).
+
+        `remat` (used when gradients are recorded): True or "stage"
+        checkpoints the graph per stage (5 backbone stages, 2 FPN halves,
+        3 head levels), so the forward keeps only the stages' boundaries
+        and the backward recomputes each interior; "blocks" also nests a
+        region around every CSP inner block and PSA block (lowest peak
+        memory, interiors recompute twice). The same regions as the JAX
+        package's `forward_raw(remat=)`."""
         net, fpn = self.net, self.fpn
-        x = x.permute(0, 3, 1, 2)
-        x = net["p1"][0](x)
-        x = net["p2"][1](net["p2"][0](x))
-        p3 = net["p3"][1](net["p3"][0](x))
-        p4 = net["p4"][1](net["p4"][0](p3))
-        p5 = p4
-        for block in net["p5"]:
-            p5 = block(p5)
+        stage = bool(remat) and torch.is_grad_enabled()
+        inner = stage and remat == "blocks"
+        run = ckpt_region if stage else (lambda fn, *args: fn(*args))
 
-        h4 = fpn["h1"](torch.cat((upsample2x(p5), p4), 1))
-        h3 = fpn["h2"](torch.cat((upsample2x(h4), p3), 1))
-        h4b = fpn["h4"](torch.cat((fpn["h3"](h3), h4), 1))
-        h5b = fpn["h6"](torch.cat((fpn["h5"](h4b), p5), 1))
+        def s5(xx):
+            xx = net["p5"][1](net["p5"][0](xx), remat=inner)
+            return net["p5"][3](net["p5"][2](xx), remat=inner)
 
-        outs = []
-        for feat, box, cls in zip((h3, h4b, h5b), self.head["box"],
-                                  self.head["cls"]):
+        def top_down(p3, p4, p5):
+            h4 = fpn["h1"](torch.cat((upsample2x(p5), p4), 1), remat=inner)
+            h3 = fpn["h2"](torch.cat((upsample2x(h4), p3), 1), remat=inner)
+            return h3, h4
+
+        def bottom_up(h3, h4, p5):
+            h4b = fpn["h4"](torch.cat((fpn["h3"](h3), h4), 1), remat=inner)
+            h5b = fpn["h6"](torch.cat((fpn["h5"](h4b), p5), 1), remat=inner)
+            return h4b, h5b
+
+        def level(feat, box, cls):
             b, c = feat, feat
             for conv in box:
                 b = conv(b)
             for conv in cls:
                 c = conv(c)
-            outs.append(torch.cat((b, c), 1).permute(0, 2, 3, 1))
-        return outs
+            return torch.cat((b, c), 1)
+
+        x = x.permute(0, 3, 1, 2)
+        x = run(net["p1"][0], x)
+        x = run(lambda xx: net["p2"][1](net["p2"][0](xx), remat=inner), x)
+        p3 = run(lambda xx: net["p3"][1](net["p3"][0](xx), remat=inner), x)
+        p4 = run(lambda xx: net["p4"][1](net["p4"][0](xx), remat=inner), p3)
+        p5 = run(s5, p4)
+        h3, h4 = run(top_down, p3, p4, p5)
+        h4b, h5b = run(bottom_up, h3, h4, p5)
+        return [run(lambda f, b=box, c=cls: level(f, b, c), feat)
+                .permute(0, 2, 3, 1)
+                for feat, box, cls in zip((h3, h4b, h5b), self.head["box"],
+                                          self.head["cls"])]
 
     def decode_predictions(self, raw_maps, input_hw):
         """(B, A, 4+nc): pixel-space xywh boxes + sigmoid class scores."""

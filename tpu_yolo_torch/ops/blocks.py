@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from tpu_yolo_torch.ops.attention_cuda import fused_attention
-from tpu_yolo_torch.ops.nn import ConvBN, identity, max_pool
+from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, max_pool
 
 
 class Residual(nn.Module):
@@ -45,7 +45,8 @@ class CSPModule(nn.Module):
 
 class CSP(nn.Module):
     """C3k2-style CSP stage: conv1 -> split 2 -> n chained inner blocks on
-    the tail -> concat(2+n) -> conv2."""
+    the tail -> concat(2+n) -> conv2. `remat=True` checkpoints each inner
+    block (the interior is the bulk of a stage's activation memory)."""
 
     def __init__(self, in_ch: int, out_ch: int, n: int, use_csp_module: bool,
                  r: int):
@@ -57,10 +58,11 @@ class CSP(nn.Module):
             CSPModule(hidden, hidden) if use_csp_module else Residual(hidden)
             for _ in range(n)])
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
         parts = list(self.conv1(x).chunk(2, 1))
         for block in self.m:
-            parts.append(block(parts[-1]))
+            parts.append(ckpt_region(block, parts[-1]) if remat
+                         else block(parts[-1]))
         return self.conv2(torch.cat(parts, 1))
 
 
@@ -106,9 +108,20 @@ class Attention(nn.Module):
         def to_heads(a, d):
             return a.transpose(1, 2).reshape(b * heads, t, d).contiguous()
 
-        out = fused_attention(to_heads(q, dk), to_heads(k, dk),
-                              to_heads(v, dh), dk ** -0.5)
-        out = out.reshape(b, heads, t, dh).transpose(1, 2).reshape(b, h, w, c)
+        if self.training:
+            # The JAX package's own dispatch, not a fallback: its fused
+            # kernel serves inference only, and its training forward is
+            # two products outside any kernel, differentiated by autodiff.
+            # Scores and softmax in f32, p cast to the input's type, PV
+            # accumulated in f32.
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dk ** -0.5
+            p = torch.softmax(s, -1).to(x.dtype)
+            out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(x.dtype)
+        else:
+            out = fused_attention(to_heads(q, dk), to_heads(k, dk),
+                                  to_heads(v, dh), dk ** -0.5)
+            out = out.reshape(b, heads, t, dh).transpose(1, 2)
+        out = out.reshape(b, h, w, c)
         pos = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2))
         return self.proj(out.permute(0, 3, 1, 2) + pos)
 
@@ -129,7 +142,8 @@ class PSABlock(nn.Module):
 
 class PSA(nn.Module):
     """Partial self-attention: split channels, attend on half, concat,
-    project."""
+    project. `remat=True` checkpoints each block (the training attention
+    keeps its (B, heads, T, T) scores for the backward pass)."""
 
     def __init__(self, ch: int, n: int):
         super().__init__()
@@ -139,8 +153,8 @@ class PSA(nn.Module):
         self.m = nn.ModuleList([PSABlock(half, max(ch // 128, 1))
                                 for _ in range(n)])
 
-    def forward(self, x):
+    def forward(self, x, remat: bool = False):
         a, y = self.conv1(x).chunk(2, 1)
         for block in self.m:
-            y = block(y)
+            y = ckpt_region(block, y) if remat else block(y)
         return self.conv2(torch.cat((a, y), 1))

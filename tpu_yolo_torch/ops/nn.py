@@ -1,23 +1,60 @@
 """Conv (+BatchNorm) (+SiLU), pooling and upsampling as torch modules.
 
-Counterpart of `tpu_yolo/ops/nn.py` for inference. Tensors inside the
+Counterpart of `tpu_yolo/ops/nn.py`. Tensors inside the
 model are NCHW in shape and channels_last in memory, which is the
 layout cuDNN's NHWC convolutions take without a transpose; the model's
 public functions convert to and from NHWC at its boundary.
 
 `ConvBN` holds its weights under the JAX parameter names, so a state
 dict key is the JAX tree path joined with dots:
-  unfolded: w (OIHW), gamma, beta, mean, var  — BatchNorm in eval form
+  unfolded: w (OIHW), gamma, beta, mean, var  — BatchNorm; batch
+                                                statistics in training
+                                                mode, running ones in eval
   folded:   w (OIHW), b                       — BN folded in, or a plain
                                                 conv with a bias
+`w`, `b`, `gamma` and `beta` are parameters; `mean` and `var` are buffers.
+
+A module in training mode updates its running statistics in `forward`,
+as torch's BatchNorm does. A checkpointed region (`ckpt_region`) runs its
+forward a second time in the backward pass; that second run leaves the
+buffers alone, or the momentum update would be applied twice.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Marks the backward pass's second run of a checkpointed region."""
+    before = getattr(_state, "recomputing", False)
+    _state.recomputing = True
+    try:
+        yield
+    finally:
+        _state.recomputing = before
+
+
+def ckpt_region(fn, *args):
+    """fn(*args) under activation checkpointing: only the region's inputs
+    and outputs are kept, and the backward pass recomputes its interior.
+    Regions nest. Counterpart of the JAX package's `ckpt_region`; the BN
+    running statistics are kept out of the second run by a flag where the
+    JAX package routes them through the region's outputs."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 def identity(x):
@@ -33,14 +70,14 @@ class ConvBN(nn.Module):
         super().__init__()
         self.stride, self.padding, self.groups, self.act = (
             stride, padding, groups, act)
-        self.w = nn.Parameter(torch.empty(out_ch, in_ch // groups, k, k),
-                              requires_grad=False)
+        self.w = nn.Parameter(torch.empty(out_ch, in_ch // groups, k, k))
         if folded:
-            self.b = nn.Parameter(torch.zeros(out_ch), requires_grad=False)
+            self.b = nn.Parameter(torch.zeros(out_ch))
         else:
-            for name, fill in (("gamma", 1.0), ("beta", 0.0),
-                               ("mean", 0.0), ("var", 1.0)):
-                self.register_buffer(name, torch.full((out_ch,), fill))
+            self.gamma = nn.Parameter(torch.ones(out_ch))
+            self.beta = nn.Parameter(torch.zeros(out_ch))
+            self.register_buffer("mean", torch.zeros(out_ch))
+            self.register_buffer("var", torch.ones(out_ch))
 
     @property
     def folded(self) -> bool:
@@ -54,10 +91,31 @@ class ConvBN(nn.Module):
                                      padding=self.padding, groups=self.groups))
         y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
                      groups=self.groups)
+        if self.training:
+            return self._train_norm(y).to(x.dtype)
         scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
         bias = self.beta.float() - self.mean.float() * scale
         return self.act(y * scale.to(y.dtype).view(1, -1, 1, 1)
                         + bias.to(y.dtype).view(1, -1, 1, 1))
+
+    def _train_norm(self, y):
+        """BatchNorm over the batch and the activation, in f32: biased
+        variance (clipped at 0) for the normalize, unbiased for the
+        running update with momentum 0.03."""
+        yf = y.float()
+        mean = yf.mean((0, 2, 3))
+        var = (yf.square().mean((0, 2, 3)) - mean.square()).clamp(min=0)
+        if not getattr(_state, "recomputing", False):
+            with torch.no_grad():
+                n = yf.numel() // yf.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                # in place: the buffers keep their identity for the EMA
+                # and the state dict
+                self.mean.copy_((1.0 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
+                self.var.copy_((1.0 - BN_MOMENTUM) * self.var + BN_MOMENTUM * unbiased)
+        scale = torch.rsqrt(var + BN_EPS) * self.gamma
+        return self.act(yf * scale.view(1, -1, 1, 1)
+                        + (self.beta - mean * scale).view(1, -1, 1, 1))
 
     @torch.no_grad()
     def fold_(self):

@@ -35,12 +35,32 @@ GROUPS = (  # first match wins; matched against the lowercased kernel name
 )
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, pattern in GROUPS:
+    for group, pattern in groups:
         if re.search(pattern, low):
             return group
     return "other"
+
+
+def device_time(prof, per: int, groups=GROUPS):
+    """Device time of a torch.profiler trace, per `per` iterations:
+    ({group: ms}, [(ms, calls, kernel name), ...] longest first)."""
+    by_group, kernels = {}, []
+    for e in prof.key_averages():
+        # device activities only (kernels, copies); the CPU-side aten::
+        # rows repeat their kernels' time, and the profiler's own buffer
+        # requests are no work of the program
+        us = getattr(e, "self_device_time_total", 0.0)
+        if (e.device_type != torch.autograd.DeviceType.CUDA or us <= 0
+                or e.key.startswith("Activity Buffer")):
+            continue
+        ms = us / 1e3 / per
+        group = _group(e.key, groups)
+        by_group[group] = by_group.get(group, 0.0) + ms
+        kernels.append((ms, e.count // per, e.key))
+    kernels.sort(reverse=True)
+    return dict(sorted(by_group.items(), key=lambda kv: -kv[1])), kernels
 
 
 def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
@@ -69,27 +89,15 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    groups, kernels = {}, []
-    for e in prof.key_averages():
-        # device activities only (kernels, copies); the CPU-side aten::
-        # rows repeat their kernels' time, and the profiler's own buffer
-        # requests are no work of the program
-        us = getattr(e, "self_device_time_total", 0.0)
-        if (e.device_type != torch.autograd.DeviceType.CUDA or us <= 0
-                or e.key.startswith("Activity Buffer")):
-            continue
-        ms = us / 1e3 / traced
-        groups[_group(e.key)] = groups.get(_group(e.key), 0.0) + ms
-        kernels.append((ms, e.count // traced, e.key))
+    groups, kernels = device_time(prof, traced)
     device_ms = sum(groups.values())
-    kernels.sort(reverse=True)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "model": "v11-n", "size": size,
         "batch": batch, "img_per_s": img_s,
         "wall_ms_per_batch": wall_ms / traced,
         "device_ms_per_batch": device_ms,
         "device_busy_share": device_ms * traced / wall_ms if wall_ms else None,
-        "groups_ms_per_batch": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "groups_ms_per_batch": groups,
         "top_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
                         for ms, n, name in kernels[:15]],
     }))

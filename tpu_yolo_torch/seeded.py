@@ -1,5 +1,6 @@
-"""Seeded random weights that behave like trained ones, for smoke runs and
-profiles of the serving path (chip_smoke.py, profile_serve.py).
+"""Seeded random weights that behave like trained ones, and a seeded
+synthetic mini-COCO, for smoke runs, profiles and tests (chip_smoke.py,
+profile_serve.py, profile_train.py).
 
 The seeded Kaiming-uniform weights of `init_params` shrink activations
 about 3x per layer, so a model built from them alone outputs its head
@@ -10,6 +11,8 @@ tens to hundreds of candidates per image above the serving conf (0.25);
 around -1, a third of all (anchor, class) pairs would clear it.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -24,6 +27,25 @@ def seeded_images(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
     """(n, size, size, 3) uint8 images of 8x8-pixel random blocks."""
     blocks = rng.integers(0, 256, (n, size // 8, size // 8, 3), dtype=np.uint8)
     return np.ascontiguousarray(blocks.repeat(8, 1).repeat(8, 2))
+
+
+def seeded_train_batch(rng: np.random.Generator, n: int, size: int,
+                       max_boxes: int = 40, num_classes: int = 80):
+    """One training batch: (n, size, size, 3) uint8 images and (n, N, 5)
+    f32 padded [cls, x1, y1, x2, y2] pixel targets with 1..max_boxes boxes
+    an image, N the smallest of the trainer's buckets (32, 64, ...) that
+    holds them."""
+    images = seeded_images(rng, n, size)
+    counts = rng.integers(1, max_boxes + 1, n)
+    bucket = next(b for b in (32, 64, 128, 256, 512) if b >= counts.max())
+    gt = np.zeros((n, bucket, 5), np.float32)
+    for i, c in enumerate(counts):
+        wh = rng.uniform(0.04, 0.5, (c, 2)) * size
+        xy1 = rng.uniform(0, 1, (c, 2)) * (size - wh)
+        gt[i, :c, 0] = rng.integers(0, num_classes, c)
+        gt[i, :c, 1:3] = xy1
+        gt[i, :c, 3:5] = xy1 + wh
+    return images, gt
 
 
 def serving_state(cfg, seed: int, imgs: np.ndarray, device) -> dict:
@@ -51,3 +73,39 @@ def serving_state(cfg, seed: int, imgs: np.ndarray, device) -> dict:
         for h in hooks:
             h.remove()
     return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def write_mini_coco(root: str, n_train: int, n_val: int = 0,
+                    hw: tuple[int, int] = (120, 160), seed: int = 0,
+                    num_classes: int = 2) -> str:
+    """A synthetic dataset in the COCO directory layout under `root`:
+    images/<split>/*.jpg of random pixels with one bright box each,
+    labels/<split>/*.txt with that box in YOLO format, and <split>.txt
+    listing the images. The val2017 split is written only when `n_val`
+    > 0. Returns `root`."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for split, n in (("train2017", n_train), ("val2017", n_val)):
+        if n == 0:
+            continue
+        img_dir = os.path.join(root, "images", split)
+        lbl_dir = os.path.join(root, "labels", split)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(lbl_dir, exist_ok=True)
+        names = []
+        for i in range(n):
+            img = rng.integers(0, 255, (h, w, 3), np.uint8)
+            bw, bh = int(rng.integers(w // 6, w // 2)), int(rng.integers(h // 6, h // 2))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            cls = i % num_classes
+            img[y0:y0 + bh, x0:x0 + bw] = (255, 40 + 60 * cls, 40)
+            names.append(os.path.join(img_dir, f"{split}_{i}.jpg"))
+            cv2.imwrite(names[-1], img)
+            with open(os.path.join(lbl_dir, f"{split}_{i}.txt"), "w") as f:
+                f.write(f"{cls} {(x0 + bw / 2) / w:.4f} {(y0 + bh / 2) / h:.4f} "
+                        f"{bw / w:.4f} {bh / h:.4f}\n")
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root

@@ -1,0 +1,296 @@
+"""Host-side training orchestration: epochs, schedule, logging, ckpts
+(counterpart of `tpu_yolo/train/trainer.py`).
+
+The per-step device work is `train/step.py::train_step`; this module does
+what stays on the host: the data pipeline, the LR lookup, CSV logging,
+checkpoint save/resume and the mosaic cutoff.
+
+Kept from the JAX package, which keeps them from the reference:
+  * accumulate = max(round(64 / batch), 1);
+  * weight_decay *= batch * accumulate / 64;
+  * LinearLR over micro-steps with a >=100-step / 3-epoch warmup;
+  * mosaic disabled when 10 epochs remain;
+  * one step.csv row per epoch {epoch, box, cls, dfl, Recall, Precision,
+    mAP@50, mAP};
+  * best/last checkpoints in the JAX package's layout (either package
+    resumes from the other's file) + strip at the end.
+The per-epoch evaluation is not ported yet: without a val2017.txt the
+metrics are zeros, as in the JAX package; with one, `train` raises.
+"""
+from __future__ import annotations
+
+import csv
+import os
+import time
+
+import numpy as np
+import torch
+
+from tpu_yolo_torch.core.config import ModelConfig
+from tpu_yolo_torch.data.dataset import DetectionDataset
+from tpu_yolo_torch.data.loader import DataLoader
+from tpu_yolo_torch.io import checkpoint as ckpt_io
+from tpu_yolo_torch.io.weights import (from_jax_params, load_checkpoint_params,
+                                       train_state_from_jax, train_state_to_jax)
+from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+from tpu_yolo_torch.train import optim
+from tpu_yolo_torch.train.loss import build_padded_targets
+from tpu_yolo_torch.train.step import init_train_state, train_step
+
+_GT_BUCKETS = (32, 64, 128, 256, 512)
+
+
+def _gt_bucket(n: int) -> int:
+    for b in _GT_BUCKETS:
+        if n <= b:
+            return b
+    return _GT_BUCKETS[-1]
+
+
+class AverageMeter:
+    """Running mean that skips NaN."""
+
+    def __init__(self):
+        self.num = 0.0
+        self.sum = 0.0
+        self.avg = 0.0
+
+    def update(self, v, n):
+        v = float(v)
+        if not np.isnan(v):
+            self.num += n
+            self.sum += v * n
+            self.avg = self.sum / self.num
+
+
+def _save_train_ckpt(path: str, state, epoch: int, best: float,
+                     meta: dict | None = None):
+    """Serialize the full training state, in the JAX package's layout."""
+    ckpt_io.save_checkpoint(path, {"epoch": epoch + 1, "best": best,
+                                   "meta": meta or {},
+                                   **train_state_to_jax(state)})
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    return device
+
+
+def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
+    """Full training run; returns the final TrainState. `args` needs:
+    data_dir, input_size, batch_size, epochs, save_dir, resume
+    (path|None), weights (path|None), workers, model_size; optional:
+    gt_bucket, remat, remat_level, tensorboard."""
+    device = _device(device)
+    os.makedirs(args.save_dir, exist_ok=True)
+    start_epoch, best = 0, 0.0
+
+    batch = args.batch_size
+    accumulate = max(round(64 / batch), 1)
+    wd = hyp["weight_decay"] * batch * accumulate / 64
+
+    # --- model + state ------------------------------------------------
+    state = None
+    sd = None
+    if args.resume:
+        payload = ckpt_io.load_checkpoint(args.resume)
+        if "opt" in payload:  # full training state
+            state = train_state_from_jax(payload, cfg, device, accumulate)
+            start_epoch = int(payload.get("epoch", 0))
+            best = float(payload.get("best", 0.0))
+            print(f"resumed from {args.resume} at epoch {start_epoch}")
+        else:  # stripped (inference-only) checkpoint: params only, fresh
+               # optimizer/EMA, so epoch and best start over too
+            sd = from_jax_params(payload["params"], cfg)
+            print(f"fine-tuning from stripped checkpoint {args.resume} "
+                  "(fresh optimizer/EMA, epoch 0)")
+    elif args.weights:
+        sd = load_checkpoint_params(args.weights, cfg)
+    if state is None:
+        if sd is None:
+            sd = from_jax_params(init_params(0, cfg), cfg)
+        model = YOLO.from_state_dict(cfg, sd).to(
+            device=device, memory_format=torch.channels_last)
+        state = init_train_state(model, ema=True, accumulate=accumulate)
+
+    # --- data ----------------------------------------------------------
+    with open(os.path.join(args.data_dir, "train2017.txt")) as f:
+        filenames = [
+            os.path.join(args.data_dir, "images", "train2017",
+                         os.path.basename(line.strip()))
+            for line in f if line.strip()]
+    dataset = DetectionDataset(
+        filenames, args.input_size, hyp, augment=True,
+        cache_path=os.path.join(args.data_dir, "train2017.cache.npy"))
+    loader = DataLoader(dataset, batch, shuffle=True,
+                        num_workers=args.workers, drop_last=True)
+    fixed_bucket = int(getattr(args, "gt_bucket", 0) or 0)
+    warned_gt_overflow = False
+
+    # the active loader's length drives the LR schedule and the step count
+    num_steps = len(loader)
+    schedule = optim.linear_lr(args.epochs, num_steps, hyp)
+    try:
+        optim.plot_lr(schedule, os.path.join(args.save_dir, "lr.png"))
+    except ImportError as e:
+        print(f"lr.png not written: {e}")
+
+    hyp_gains = [hyp["box"], hyp["cls"], hyp["dfl"]]
+    remat = getattr(args, "remat", False) and getattr(args, "remat_level",
+                                                       "stage")
+    meta = {"size": args.model_size, "num_classes": cfg.num_classes}
+
+    # One pinned staging buffer: the copy to the card is asynchronous, and
+    # the buffer is free again once the step's losses have been read.
+    pinned = (torch.empty((batch, args.input_size, args.input_size, 3),
+                          dtype=torch.uint8, pin_memory=True)
+              if device.type == "cuda" else None)
+
+    log = open(os.path.join(args.save_dir, "step.csv"), "w", newline="")
+    logger = csv.DictWriter(log, fieldnames=[
+        "epoch", "box", "cls", "dfl", "Recall", "Precision", "mAP@50", "mAP"])
+    logger.writeheader()
+
+    tb = None
+    if getattr(args, "tensorboard", False):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            tb = SummaryWriter(os.path.join(args.save_dir, "tb"))
+        except Exception as e:  # keep training if TB is unavailable
+            print(f"tensorboard disabled: {e}")
+
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            # mosaic off once 10 epochs remain; `<=` so a resume that
+            # lands past the crossing still disables it. Runs shorter
+            # than 10 epochs never cross, keeping mosaic.
+            dataset.mosaic = args.epochs - epoch > 10 or args.epochs < 10
+            loader.set_epoch(epoch)
+
+            # Gradients are zeroed at every epoch start, which drops any
+            # accumulated-but-unapplied tail when num_steps % accumulate
+            # != 0: a quirk of the reference that the trajectory goldens
+            # pin.
+            if state.accum is not None:
+                torch._foreach_zero_(list(state.accum.values()))
+
+            meters = {k: AverageMeter() for k in ("box", "cls", "dfl")}
+            epoch_gt_truncated = 0  # --gt-bucket label loss this epoch
+            t0 = time.perf_counter()
+
+            for i, (images, targets) in enumerate(loader):
+                if pinned is not None:
+                    pinned.copy_(torch.from_numpy(images))
+                    images_dev = pinned.to(device, non_blocking=True)
+                else:
+                    images_dev = torch.from_numpy(images)
+                step = i + num_steps * epoch
+                lr = float(schedule[min(step, len(schedule) - 1)])
+                apply_update = (step % accumulate) == 0
+
+                counts = np.bincount(np.asarray(targets["idx"], np.int64),
+                                     minlength=batch)
+                max_n = int(counts.max()) if len(targets["idx"]) else 1
+                if fixed_bucket:
+                    # --gt-bucket: a fixed pad shape; overflow rows are
+                    # dropped by build_padded_targets and counted, so
+                    # that sustained label loss shows in the epoch's
+                    # summary and not only in a once-per-run warning
+                    bucket = fixed_bucket
+                    if max_n > fixed_bucket:
+                        epoch_gt_truncated += int(
+                            np.maximum(counts - fixed_bucket, 0).sum())
+                        if not warned_gt_overflow:
+                            warned_gt_overflow = True
+                            print(f"[train] warning: image with {max_n} "
+                                  f"GT boxes truncated to --gt-bucket="
+                                  f"{fixed_bucket}")
+                else:
+                    bucket = _gt_bucket(max(max_n, 1))
+                gt = build_padded_targets(
+                    targets, batch, bucket,
+                    (args.input_size, args.input_size))
+
+                losses = train_step(
+                    state, images_dev, torch.from_numpy(gt).to(device), lr,
+                    hyp_gains, wd, hyp["momentum"], cfg=cfg,
+                    accumulate=accumulate, apply_update=apply_update,
+                    remat=remat).tolist()
+
+                for k, v in zip(("box", "cls", "dfl"), losses):
+                    if not np.isfinite(v):
+                        # Divergence guard: save the blown state for a
+                        # post-mortem and stop with a pointer to the last
+                        # good checkpoint.
+                        crash = os.path.join(args.save_dir, "crash.ckpt")
+                        _save_train_ckpt(crash, state, epoch, best, meta)
+                        raise FloatingPointError(
+                            f"loss_{k} is {v} at epoch {epoch + 1} step "
+                            f"{i} (lr={lr:.2e}); diverged state saved to "
+                            f"{crash}; resume from "
+                            f"{os.path.join(args.save_dir, 'last.ckpt')}")
+                    meters[k].update(v, batch)
+
+            # every step's losses were read, so the device has finished
+            seconds = time.perf_counter() - t0
+            print(f"epoch {epoch + 1}/{args.epochs}: "
+                  f"box {meters['box'].avg:.3f} cls {meters['cls'].avg:.3f} "
+                  f"dfl {meters['dfl'].avg:.3f} ({seconds:.1f} s, "
+                  f"{num_steps * batch / seconds:.1f} img/s)", flush=True)
+            if epoch_gt_truncated:
+                print(f"[train] epoch {epoch + 1}: {epoch_gt_truncated} "
+                      f"GT boxes truncated by --gt-bucket={fixed_bucket} "
+                      f"(raise the bucket if persistent)")
+
+            # --- per-epoch eval + checkpoint ---------------------------
+            m_ap, m_ap50, recall, precision = _run_eval(args)
+            logger.writerow({
+                "epoch": str(epoch + 1).zfill(3),
+                "box": f"{meters['box'].avg:.3f}",
+                "cls": f"{meters['cls'].avg:.3f}",
+                "dfl": f"{meters['dfl'].avg:.3f}",
+                "mAP": f"{m_ap:.3f}", "mAP@50": f"{m_ap50:.3f}",
+                "Recall": f"{recall:.3f}", "Precision": f"{precision:.3f}"})
+            log.flush()
+
+            if tb is not None:
+                for k, v in (("loss/box", meters["box"].avg),
+                             ("loss/cls", meters["cls"].avg),
+                             ("loss/dfl", meters["dfl"].avg),
+                             ("val/mAP", m_ap), ("val/mAP50", m_ap50),
+                             ("val/recall", recall),
+                             ("val/precision", precision)):
+                    tb.add_scalar(k, v, epoch + 1)
+                tb.flush()
+
+            best = max(best, m_ap)
+            _save_train_ckpt(os.path.join(args.save_dir, "last.ckpt"),
+                             state, epoch, best, meta)
+            if best == m_ap:
+                _save_train_ckpt(os.path.join(args.save_dir, "best.ckpt"),
+                                 state, epoch, best, meta)
+    finally:
+        log.close()
+        if tb is not None:
+            tb.close()
+
+    for name in ("best.ckpt", "last.ckpt"):
+        p = os.path.join(args.save_dir, name)
+        if os.path.exists(p):
+            ckpt_io.strip_checkpoint(p)
+    return state
+
+
+def _run_eval(args):
+    """(mAP, mAP@50, recall, precision) of the EMA weights on val2017.
+    Zeros when the data directory has no val2017.txt, as in the JAX
+    package; the evaluator itself belongs to the eval slice of the port."""
+    if not os.path.exists(os.path.join(args.data_dir, "val2017.txt")):
+        return 0.0, 0.0, 0.0, 0.0
+    raise NotImplementedError(
+        "per-epoch evaluation is not ported yet (the eval slice: "
+        "eval/evaluator.py and eval/metrics.py); train without a "
+        "val2017.txt in --data-dir, or evaluate the checkpoints with "
+        "tpu_yolo's `main.py --test`")
