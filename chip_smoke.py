@@ -10,7 +10,9 @@ trains YOLOv11-n at 640 px and batch 64 in bf16 (one epoch of
 `trainer.train` on a seeded mini-COCO, then timed `train_step`s) and
 checks an f32 training step's losses and gradients against the CPU. Each
 phase prints one JSON line; the line before the last lists the kernels
-with their launches on the main path, errors, times and bounds, and the
+with their launches on the main path, errors, times and bounds (`ms` and
+`library_ms` from launches replayed out of a CUDA graph, so that the
+host's launch time stays out; `ms_with_launch` from eager calls), and the
 last line is {"ok": true, "device": {...}}. Any failed check raises, so
 the script exits non-zero without that line. Without a CUDA card, or
 without the tpu_yolo_torch package beside it, it exits non-zero at once.
@@ -43,6 +45,18 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}        # atol and rtol
 IOU_FLOPS_PER_PAIR = 14   # f32 operations of one masked IoU test
+# attention checks (dtype, BH, T): the serving shape and T=333 (not a multiple
+# of 8) with K/V resident, the 1280 px shape, T=57 and T=1 with K/V streamed
+ATTN_CASES = (("bfloat16", 256, 400), ("bfloat16", 16, 1600), ("bfloat16", 3, 57),
+              ("bfloat16", 5, 1), ("bfloat16", 200, 333), ("float32", 32, 400))
+# greedy-keep checks (scene of seeded.nms_scene, B, K); the second group
+# stresses the walk: the most killers, one cluster, nothing valid, K=1 and
+# ragged last words. It draws from a generator of its own: the serving
+# images follow the first group in the main one.
+NMS_CASES = (("clustered", 128, 1024), ("clustered", 8, 2048), ("clustered", 1, 256),
+             ("uniform", 2, 8192))
+NMS_STRESS_CASES = (("disjoint", 4, 1024), ("identical", 4, 1024), ("invalid", 2, 1024),
+                    ("clustered", 2, 1), ("clustered", 3, 33), ("uniform", 4, 1000))
 
 
 def emit(phase: str, **fields):
@@ -54,18 +68,32 @@ def check(ok: bool, what: str):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events around `iters`
+    calls. With graph=True the calls are captured into one CUDA graph and
+    the events are around its replay: the host's time to launch (some 0.05
+    ms a call here, more than the faster kernels take) stays out."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = None
+    if graph:
+        run = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(run):
+            for _ in range(iters):
+                fn()
+        run.replay()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    if graph:
+        run.replay()
+    else:
+        for _ in range(iters):
+            fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -125,7 +153,7 @@ def main() -> int:
     from tpu_yolo_torch.core.config import get_model_config
     from tpu_yolo_torch.models.yolov11 import YOLO
     from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda, topk_cuda
-    from tpu_yolo_torch.seeded import seeded_images, serving_state
+    from tpu_yolo_torch.seeded import nms_scene, seeded_images, serving_state
     from tpu_yolo_torch.serve import Detector
 
     dev = torch.device("cuda")
@@ -153,8 +181,8 @@ def main() -> int:
     # (c) attention kernel against attention_plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
     attn_rows = []
-    for dtype, bh, t in ((torch.bfloat16, 256, 400), (torch.bfloat16, 16, 1600),
-                         (torch.float32, 32, 400)):
+    for dtype, bh, t in ATTN_CASES:
+        dtype = getattr(torch, dtype)
         q, k = (torch.randn(bh, t, 32, device=dev, generator=gen).to(dtype)
                 for _ in range(2))
         v = torch.randn(bh, t, 64, device=dev, generator=gen).to(dtype)
@@ -165,25 +193,30 @@ def main() -> int:
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         err = (got.float() - want.float()).abs()
         ok = bool((err <= tol + tol * want.float().abs()).all())
-        row = dict(dtype=str(dtype), bh=bh, t=t, max_abs_err=float(err.max()),
+        row = dict(dtype=str(dtype), bh=bh, t=t,
+                   form=attention_cuda.kernel_form(bh, t, dtype),
+                   max_abs_err=float(err.max()),
                    tol=f"atol {tol} + rtol {tol}", ok=ok)
         attn_rows.append(row)
         check(ok, f"attention kernel vs plain {row}")
+    check({"resident", "streamed", "f32"} <= {r["form"] for r in attn_rows},
+          f"a form of the attention kernel was not run: {attn_rows}")
     emit("attention_check", cases=attn_rows)
 
     # (d) NMS kernel against greedy_keep_plain, bit for bit
     rng = np.random.default_rng(SEED)
     nms_rows = []
-    for scene, b, k in (("clustered", 128, 1024), ("clustered", 8, 2048),
-                        ("clustered", 1, 256), ("uniform", 2, 8192)):
+    stress_rng = np.random.default_rng(SEED + 3)
+    for scene, b, k in NMS_CASES + NMS_STRESS_CASES:
+        scene_rng = rng if (scene, b, k) in NMS_CASES else stress_rng
         boxes, cls, valid = (torch.from_numpy(a).to(dev)
-                             for a in _scene(rng, scene, b, k))
+                             for a in nms_scene(scene_rng, scene, b, k))
         got = nms_cuda.greedy_keep(boxes, cls, valid, 0.65)
         want = nms_cuda.greedy_keep_plain(boxes, cls, valid, 0.65)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
-        nms_rows.append(dict(scene=scene, b=b, k=k, kept=int(got.sum()),
-                             equal=same))
+        nms_rows.append(dict(scene=scene, b=b, k=k, valid=int(valid.sum()),
+                             kept=int(got.sum()), equal=same))
         check(same, f"NMS kernel vs plain on {scene} B={b} K={k}")
     emit("nms_check", cases=nms_rows)
 
@@ -554,7 +587,6 @@ def _train_f32_phase(cfg, dev, two_images):
 
 def _kernel_rows(captured, launches):
     import torch
-    import torch.nn.functional as F
 
     from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
 
@@ -566,26 +598,26 @@ def _kernel_rows(captured, launches):
     check(bool(((got.float() - want.float()).abs()
                 <= tol + tol * want.float().abs()).all()),
           "attention kernel vs plain at the main-path inputs")
-    q4, k4, v4 = (t[None] for t in (q, k, v))
-    bound, bound_by = attention_cost(q, v, str(q.dtype).split(".")[1])
     kernels = [dict(
         name="psa_attention", route="cuda",
         source="tpu_yolo_torch/csrc/attention.cu",
         replaces="tpu_yolo/ops/attention_pallas.py:66",
-        shape=dict(bh=q.shape[0], t=q.shape[1], dk=q.shape[2], dh=v.shape[2],
-                   dtype=str(q.dtype)),
         launches=launches["attention"], max_abs_err=attn_err,
-        ms=cuda_ms(lambda: attention_cuda.fused_attention(q, k, v, scale)),
-        plain_ms=cuda_ms(lambda: attention_cuda.attention_plain(q, k, v, scale)),
-        bound_ms=bound, bound_by=bound_by,
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, scale=scale)))]
+        **_attention_times(q, k, v, scale))]
+
+    # the same kernel at the 1280 px shape, K/V streamed (not on the main path)
+    gen = torch.Generator(device=q.device).manual_seed(SEED)
+    q2, k2 = (torch.randn(16, 1600, 32, device=q.device, generator=gen).to(q.dtype)
+              for _ in range(2))
+    v2 = torch.randn(16, 1600, 64, device=q.device, generator=gen).to(q.dtype)
+    kernels[0]["second_shape"] = _attention_times(q2, k2, v2, scale)
 
     boxes, cls, valid, thr = captured["nms"]
     got = nms_cuda.greedy_keep(boxes, cls, valid, thr)
     want = nms_cuda.greedy_keep_plain(boxes, cls, valid, thr)
     check(torch.equal(got, want), "NMS kernel vs plain at the main-path inputs")
     bound, bound_by = nms_cost(boxes, cls, valid)
+    ms = cuda_ms(lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr), graph=True)
     kernels.append(dict(
         name="nms_greedy_keep", route="cuda",
         source="tpu_yolo_torch/csrc/nms_keep.cu",
@@ -594,10 +626,12 @@ def _kernel_rows(captured, launches):
                    valid=int(valid.sum()), kept=int(got.sum())),
         launches=launches["nms"],
         max_abs_err=float((got.int() - want.int()).abs().max()),
-        ms=cuda_ms(lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr)),
+        ms=ms, ms_with_launch=cuda_ms(
+            lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr)),
         plain_ms=cuda_ms(lambda: nms_cuda.greedy_keep_plain(boxes, cls, valid, thr),
                          iters=5),
-        bound_ms=bound, bound_by=bound_by, library_ms=None))
+        bound_ms=bound, bound_by=bound_by, ms_over_bound=ms / bound,
+        library_ms=None))
 
     x = captured["topk"]
     got = topk_cuda.topk_mask(x, TOP_K)
@@ -618,29 +652,37 @@ def _kernel_rows(captured, launches):
                    nonzero=int((x > 0).sum()), selected=int(got.sum())),
         launches=launches["topk"],
         max_abs_err=float((got.int() - want.int()).abs().max()),
-        ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),
+        ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K), graph=True),
+        ms_with_launch=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),
         plain_ms=cuda_ms(lambda: topk_cuda.topk_mask_plain(x, TOP_K), iters=5),
-        bound_ms=bound, bound_by=bound_by, library_ms=cuda_ms(library, iters=5)))
+        bound_ms=bound, bound_by=bound_by,
+        library_ms=cuda_ms(library, iters=5, graph=True)))
     return kernels
 
 
-def _scene(rng, scene, b, k):
-    """Score-descending NMS candidates: redundant clusters (the scenes of
-    tests/test_pallas.py) or uniform random boxes."""
-    if scene == "clustered":
-        n_obj = max(4, k // 24)
-        centers = rng.uniform(40, 600, (b, n_obj, 2))
-        sizes = rng.uniform(16, 160, (b, n_obj, 2))
-        obj = rng.integers(0, n_obj, (b, k))
-        c = np.take_along_axis(centers, obj[..., None], 1) + rng.normal(0, 6, (b, k, 2))
-        s = np.take_along_axis(sizes, obj[..., None], 1) * rng.uniform(0.85, 1.15, (b, k, 2))
-        boxes = np.concatenate([c - s / 2, c + s / 2], -1)
-        cls, valid = rng.integers(0, 8, (b, k)), rng.random((b, k)) > 0.1
-    else:
-        xy1 = rng.uniform(0, 600, (b, k, 2))
-        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 200, (b, k, 2))], -1)
-        cls, valid = rng.integers(0, 80, (b, k)), rng.random((b, k)) > 0.3
-    return boxes.astype(np.float32), cls.astype(np.int32), valid
+def _attention_times(q, k, v, scale):
+    """The attention kernel's shape, form, times and bound on q, k, v. `ms`
+    and `library_ms` are of launches replayed from a CUDA graph;
+    `ms_with_launch` is of eager calls, which the host's launch time bounds."""
+    import torch.nn.functional as F
+
+    from tpu_yolo_torch.ops import attention_cuda
+
+    dtype = str(q.dtype).split(".")[1]
+    bound, bound_by = attention_cost(q, v, dtype)
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    ms = cuda_ms(lambda: attention_cuda.fused_attention(q, k, v, scale), graph=True)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale),
+                      graph=True)
+    return dict(
+        shape=dict(bh=q.shape[0], t=q.shape[1], dk=q.shape[2], dh=v.shape[2],
+                   dtype=str(q.dtype),
+                   form=attention_cuda.kernel_form(q.shape[0], q.shape[1], q.dtype)),
+        ms=ms, ms_with_launch=cuda_ms(
+            lambda: attention_cuda.fused_attention(q, k, v, scale)),
+        plain_ms=cuda_ms(lambda: attention_cuda.attention_plain(q, k, v, scale)),
+        bound_ms=bound, bound_by=bound_by, library_ms=library,
+        ms_over_bound=ms / bound, ms_over_library=ms / library)
 
 
 def _row(res, i):

@@ -1,6 +1,6 @@
 """PSA attention in the port: the plain version against the Pallas kernel
-(interpret mode), the attention block against the JAX block, and the
-wrapper's input checks. The CUDA kernel's tests are in
+(interpret mode), a model of the CUDA kernels' schedule against both, the
+attention block against the JAX block, and the wrapper's input checks. The CUDA kernel's tests are in
 tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
@@ -33,6 +33,58 @@ def test_plain_matches_pallas_interpret(t, dk, dh):
     got = attention_plain(*map(torch.from_numpy, (q, k, v)), scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+def _schedule_model(q, k, v, scale, tile, fold_log2e):
+    """The CUDA kernels' schedule in tensor ops: keys in tiles of `tile`
+    (ragged at the end), scores in f32, a running max and sum, each tile's
+    p rounded to v's dtype before the PV product (unnormalized), PV
+    accumulated in f32, one division at the end. The bf16 kernel folds
+    scale*log2(e) into the scores and takes exp2 (tile 80); the f32 kernel
+    scales and takes exp (tile 64)."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    factor = torch.tensor(scale, dtype=torch.float32)
+    if fold_log2e:
+        factor = factor * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    exp = torch.exp2 if fold_log2e else torch.exp
+    bh, t, _ = q.shape
+    m = torch.full((bh, t), -torch.inf)
+    l = torch.zeros(bh, t)
+    o = torch.zeros(bh, t, v.shape[-1])
+    for k0 in range(0, t, tile):
+        s = torch.matmul(qf, kf[:, k0:k0 + tile].transpose(-1, -2)) * factor
+        m_new = torch.maximum(m, s.max(-1).values)
+        corr = exp(m - m_new)                   # 0 on the first tile
+        p = exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                               vf[:, k0:k0 + tile])
+        m = m_new
+    return (o * (1.0 / l)[..., None]).to(v.dtype)
+
+
+@pytest.mark.parametrize("t", [57, 400, 333, 1])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_schedule_model_matches_plain_and_pallas(dtype, t):
+    """The online, tiled form the CUDA kernels compute agrees with the
+    plain version and with the Pallas kernel (interpret mode) on the same
+    seeded inputs: bf16 within 1e-2 abs + 1e-2 rel (p is rounded to bf16
+    before it is normalized, so up to a bf16 ulp apart), f32 within 1e-5."""
+    bf16 = dtype == "bfloat16"
+    tol = 1e-2 if bf16 else 1e-5
+    q, k, v = (torch.from_numpy(a).to(getattr(torch, dtype))
+               for a in _qkv(np.random.default_rng(t), 3, t, 32, 64))
+    scale = 32 ** -0.5
+    got = _schedule_model(q, k, v, scale, tile=80 if bf16 else 64,
+                          fold_log2e=bf16).float()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, attention_plain(q, k, v, scale).float(),
+                               rtol=tol, atol=tol)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    want = pallas_attention(*(jnp.asarray(a.float().numpy(), jdt) for a in (q, k, v)),
+                            scale, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

@@ -14,9 +14,11 @@ import torch
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.io.weights import from_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params
-from tpu_yolo_torch.ops.attention_cuda import attention_plain, fused_attention
+from tpu_yolo_torch.ops.attention_cuda import (attention_plain, fused_attention,
+                                               kernel_form)
 from tpu_yolo_torch.ops.nms_cuda import greedy_keep, greedy_keep_plain
 from tpu_yolo_torch.ops.topk_cuda import topk_mask, topk_mask_plain
+from tpu_yolo_torch.seeded import nms_scene
 from tpu_yolo_torch.serve import Detector
 
 
@@ -27,13 +29,20 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,bh,t", [(torch.bfloat16, 256, 400),
-                                        (torch.bfloat16, 16, 1600),
-                                        (torch.bfloat16, 3, 57),
-                                        (torch.float32, 8, 400)])
-def test_attention_kernel_matches_plain(cuda, dtype, bh, t):
+@pytest.mark.parametrize("dtype,bh,t,form", [
+    (torch.bfloat16, 256, 400, "resident"),   # the serving shape
+    (torch.bfloat16, 200, 333, "resident"),   # T not a multiple of 8
+    (torch.bfloat16, 140, 560, "resident"),   # the longest resident T
+    (torch.bfloat16, 140, 561, "streamed"),
+    (torch.bfloat16, 16, 1600, "streamed"),   # the 1280 px shape
+    (torch.bfloat16, 2, 400, "streamed"),     # one image: fewer heads than SMs
+    (torch.bfloat16, 3, 57, "streamed"),
+    (torch.bfloat16, 5, 1, "streamed"),
+    (torch.float32, 8, 400, "f32")])
+def test_attention_kernel_matches_plain(cuda, dtype, bh, t, form):
     """bf16: within 1e-2 abs + 1e-2 rel (p is rounded to bf16 at another
-    point of the online softmax than in the plain version); f32: 1e-5."""
+    point of the online softmax than in the plain version); f32: 1e-5.
+    The forms are those of an H100's 132 SMs."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k = (torch.randn(bh, t, 32, device=cuda, generator=gen).to(dtype)
             for _ in range(2))
@@ -42,42 +51,54 @@ def test_attention_kernel_matches_plain(cuda, dtype, bh, t):
     got = fused_attention(q, k, v, 32 ** -0.5)
     torch.cuda.synchronize()
     assert fused_attention.launches == before + 1
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert kernel_form(bh, t, dtype) == form
     want = attention_plain(q, k, v, 32 ** -0.5)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _scene(rng, b, k, clustered):
-    if clustered:
-        n_obj = max(4, k // 24)
-        centers = rng.uniform(40, 600, (b, n_obj, 2))
-        sizes = rng.uniform(16, 160, (b, n_obj, 2))
-        obj = rng.integers(0, n_obj, (b, k))
-        c = (np.take_along_axis(centers, obj[..., None], 1)
-             + rng.normal(0, 6, (b, k, 2)))
-        s = (np.take_along_axis(sizes, obj[..., None], 1)
-             * rng.uniform(0.85, 1.15, (b, k, 2)))
-        boxes = np.concatenate([c - s / 2, c + s / 2], -1)
-        cls, valid = rng.integers(0, 8, (b, k)), rng.random((b, k)) > 0.1
-    else:
-        xy1 = rng.uniform(0, 600, (b, k, 2))
-        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 200, (b, k, 2))], -1)
-        cls, valid = rng.integers(0, 80, (b, k)), rng.random((b, k)) > 0.3
-    return boxes.astype(np.float32), cls.astype(np.int32), valid
+def test_attention_kernel_with_large_scores(cuda):
+    """Scores of some hundreds: the running max keeps exp2 in range, and a
+    row dominated by one key returns that key's value."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k = (8 * torch.randn(140, 400, 32, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    v = torch.randn(140, 400, 64, device=cuda, generator=gen).bfloat16()
+    got = fused_attention(q, k, v, 1.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    torch.testing.assert_close(got.float(), attention_plain(q, k, v, 1.0).float(),
+                               rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("b,k,clustered", [(128, 1024, True), (8, 2048, True),
-                                           (1, 256, True), (4, 1000, False),
-                                           (3, 33, True), (2, 8192, False)])
-def test_nms_kernel_equals_plain(cuda, b, k, clustered):
+@pytest.mark.parametrize("scene,b,k", [
+    ("clustered", 128, 1024), ("clustered", 8, 2048), ("clustered", 1, 256),
+    ("uniform", 4, 1000), ("clustered", 3, 33), ("uniform", 2, 8192),
+    ("disjoint", 4, 1024), ("identical", 4, 1024), ("invalid", 2, 1024),
+    ("clustered", 2, 1), ("clustered", 2, 8192), ("identical", 1, 8192)])
+@pytest.mark.parametrize("valid_as", ["given", "prefix"])
+def test_nms_kernel_equals_plain(cuda, scene, b, k, valid_as):
+    """Bit-equal keep masks, with `valid` as the scene gives it (any
+    pattern) and as a prefix (what the main path passes)."""
     rng = np.random.default_rng(b * k)
-    boxes, cls, valid = (torch.from_numpy(a).to(cuda)
-                         for a in _scene(rng, b, k, clustered))
+    boxes, cls, valid = nms_scene(rng, scene, b, k)
+    if valid_as == "prefix":
+        valid = np.arange(k)[None, :] < rng.integers(0, k + 1, (b, 1))
+    boxes, cls, valid = (torch.from_numpy(a).to(cuda) for a in (boxes, cls, valid))
     before = greedy_keep.launches
     got = greedy_keep(boxes, cls, valid, 0.65)
     torch.cuda.synchronize()
     assert greedy_keep.launches == before + 1
     assert torch.equal(got, greedy_keep_plain(boxes, cls, valid, 0.65))
+
+
+@pytest.mark.parametrize("thr", [0.0, 0.3, 0.9, 1.0])
+def test_nms_kernel_equals_plain_at_other_thresholds(cuda, thr):
+    boxes, cls, valid = (torch.from_numpy(a).to(cuda) for a in
+                         nms_scene(np.random.default_rng(7), "clustered", 4, 1024))
+    assert torch.equal(greedy_keep(boxes, cls, valid, thr),
+                       greedy_keep_plain(boxes, cls, valid, thr))
 
 
 @pytest.mark.parametrize("shape,ties", [((64, 64, 8400), False),

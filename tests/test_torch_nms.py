@@ -1,8 +1,9 @@
 """NMS in the port against the JAX package: the greedy keep (plain version
 vs the Pallas kernel in interpret mode and the XLA fixpoint), the
 reference golden, and nms_from_raw / batched_nms on seeded head maps
-through every ranking path, ties included; plus the wrapper's input
-checks. The CUDA kernel's tests are in tests/test_torch_cuda.py."""
+through every ranking path, ties included; a numpy model of the CUDA
+kernel's walk against both; plus the wrapper's input checks. The CUDA
+kernel's tests are in tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +17,7 @@ from tpu_yolo.ops.nms_pallas import greedy_keep_pallas
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.ops import nms
 from tpu_yolo_torch.ops.nms_cuda import greedy_keep, greedy_keep_plain
+from tpu_yolo_torch.seeded import nms_scene
 
 torch.set_num_threads(1)
 
@@ -80,6 +82,119 @@ def test_keep_matches_xla_fixpoint_k2048():
                                 jnp.asarray(valid), iou_thres=0.45)
     np.testing.assert_array_equal(_plain(boxes, cls, valid, 0.45),
                                   np.asarray(want))
+
+
+def _hits(a, b, thr):
+    """IoU(a, b) > thr for killers a (n, 4) and victims b (m, 4) -> (n, m),
+    in the f32 operation order of csrc/nms_keep.cu: the quotient is taken
+    as zero where the intersection is."""
+    f = np.float32
+    a, b = a[:, None, :], b[None, :, :]
+    iw = np.maximum(np.minimum(a[..., 2], b[..., 2]) - np.maximum(a[..., 0], b[..., 0]), f(0))
+    ih = np.maximum(np.minimum(a[..., 3], b[..., 3]) - np.maximum(a[..., 1], b[..., 1]), f(0))
+    inter = iw * ih
+
+    def area(x):
+        return (np.maximum(x[..., 2] - x[..., 0], f(0))
+                * np.maximum(x[..., 3] - x[..., 1], f(0)))
+
+    denom = ((area(a) + area(b)) - inter) + f(1e-12)
+    assert inter.dtype == denom.dtype == np.float32
+    return np.where(inter > 0, inter / denom, f(0)) > f(thr)
+
+
+def _walk_model(boxes, cls, valid, thr):
+    """One image through the schedule of csrc/nms_keep.cu: chunks of 32 in
+    rank order; the diagonal words of each chunk; a chunk settled as the
+    fixpoint of keep = alive & ~OR{diag[t]: t in keep}; only its kept
+    candidates tested against the later live ones, OR-ed into a `removed`
+    bitset; the all-invalid tail skipped. Returns (keep, IoU tests made
+    outside the diagonal)."""
+    k = len(valid)
+    words = (k + 31) // 32
+    kp = words * 32
+    boxes = np.concatenate([boxes, np.zeros((kp - k, 4), np.float32)])
+    cls = np.concatenate([cls, np.full(kp - k, -1, np.int32)])
+    vbits = np.concatenate([valid, np.zeros(kp - k, bool)]).reshape(words, 32)
+    live_words = np.nonzero(vbits.any(1))[0]
+    n = int(live_words[-1]) + 1 if len(live_words) else 0
+    removed = np.zeros((words, 32), bool)
+    kept = np.zeros((words, 32), bool)
+    lanes = np.arange(32)
+
+    diag = np.zeros((kp, 32), bool)           # diag[j, u]: j kills c*32+u
+    for j in np.nonzero(vbits[:n].reshape(-1))[0]:
+        c0 = j & ~31
+        same = (lanes > (j & 31)) & vbits[j >> 5] & (cls[c0:c0 + 32] == cls[j])
+        diag[j] = same & _hits(boxes[j:j + 1], boxes[c0:c0 + 32], thr)[0]
+
+    tests = 0
+    for c in range(n):
+        alive = vbits[c] & ~removed[c]
+        keep = alive.copy()
+        d = diag[c * 32:(c + 1) * 32] & alive[:, None]
+        for _ in range(33):
+            nxt = alive & ~(d & keep[:, None]).any(0)
+            if (nxt == keep).all():
+                break
+            keep = nxt
+        else:
+            raise AssertionError("the chunk's fixpoint did not settle")
+        kept[c] = keep
+        killers = c * 32 + np.nonzero(keep)[0]
+        if not len(killers):
+            continue
+        for w in range(c + 1, n):
+            aw = vbits[w] & ~removed[w]
+            victims = w * 32 + np.nonzero(aw)[0]
+            if not len(victims):
+                continue
+            same = cls[killers][:, None] == cls[victims][None, :]
+            tests += int(same.sum())
+            hit = (same & _hits(boxes[killers], boxes[victims], thr)).any(0)
+            removed[w, np.nonzero(aw)[0][hit]] = True
+    return kept.reshape(-1)[:k], tests
+
+
+WALK_SCENES = [("clustered", 2, 1024), ("uniform", 2, 512), ("disjoint", 2, 256),
+               ("identical", 2, 256), ("invalid", 2, 128), ("clustered", 3, 1),
+               ("clustered", 3, 33), ("uniform", 2, 1000), ("clustered", 1, 2048)]
+
+
+@pytest.mark.parametrize("scene,b,k", WALK_SCENES,
+                         ids=[f"{s}-{k}" for s, _, k in WALK_SCENES])
+@pytest.mark.parametrize("valid_as", ["given", "prefix", "random"])
+def test_kernel_walk_model_equals_plain_and_jax(scene, b, k, valid_as):
+    """The CUDA kernel's schedule, modelled in numpy, is bit-equal to
+    greedy_keep_plain and to the JAX package's greedy keep on the scenes
+    that stress it, with `valid` as the scene gives it, as a prefix (the
+    main path) and as a random pattern; and it makes fewer same-class IoU
+    tests than the full upper triangle wherever something is suppressed."""
+    rng = np.random.default_rng(k)
+    boxes, cls, valid = nms_scene(rng, scene, b, k)
+    if valid_as == "prefix":
+        valid = np.arange(k)[None, :] < rng.integers(0, k + 1, (b, 1))
+    elif valid_as == "random":
+        valid = rng.random((b, k)) > 0.5
+    thr = 0.65
+    got, tests = zip(*(_walk_model(boxes[i], cls[i], valid[i], thr) for i in range(b)))
+    got = np.stack(got)
+    np.testing.assert_array_equal(got, _plain(boxes, cls, valid, thr))
+    want = jax_nms._greedy_keep(jnp.asarray(boxes), jnp.asarray(cls),
+                                jnp.asarray(valid), iou_thres=thr)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if scene == "identical" and valid_as == "given":
+        assert got[:, 0].all() and got.sum() == b     # all but the first go
+    if scene == "disjoint" and valid_as == "given":
+        assert got.all()                              # the most killers
+    if scene == "invalid" and valid_as == "given":
+        assert not got.any() and sum(tests) == 0
+    tri = np.triu(np.ones((k, k), bool), 1)
+    full = int(((cls[:, :, None] == cls[:, None, :]) & tri & valid[:, :, None]
+                & valid[:, None, :]).sum())
+    assert sum(tests) <= full
+    if (valid & ~got).any() and scene != "uniform":
+        assert sum(tests) < full
 
 
 def test_golden_synthetic_exact():

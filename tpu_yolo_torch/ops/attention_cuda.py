@@ -34,12 +34,27 @@ def _library():
                                                ctypes.c_float, ctypes.c_int,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.psa_attention_form.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.psa_attention_form.restype = ctypes.c_int
     return lib
 
 
 def build() -> str:
     """Compile csrc/attention.cu now; returns nvcc's ptxas report."""
     return cuda_build.build("attention")[1]
+
+
+def kernel_form(bh: int, t: int, dtype=torch.bfloat16) -> str:
+    """Which form of the kernel `fused_attention` launches on the current
+    card for (bh, t): the bf16 kernel keeps a head's K/V "resident" in
+    shared memory or has them "streamed" through a ring (the rule is the
+    shape's alone, in csrc/attention.cu); the f32 kernel is always "f32"."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    form = _library().psa_attention_form(bh, t)
+    if form not in (0, 1):
+        raise RuntimeError("psa_attention_form: no CUDA device")
+    return ("resident", "streamed")[form]
 
 
 def fused_attention(q, k, v, scale: float):

@@ -59,7 +59,7 @@ def _library():
     lib = cuda_build.load("nms_keep", _FLAGS)
     fn = lib.nms_greedy_keep
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -98,13 +98,11 @@ def greedy_keep(cand_boxes, cls_idx, valid, iou_thres: float):
         raise ValueError(f"greedy_keep: no kernel for {cand_boxes.device} "
                          f"or boxes not 16-byte aligned")
     b, k, _ = cand_boxes.shape
-    mask = torch.empty((b, k, (k + 31) // 32), dtype=torch.int32,
-                       device=cand_boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=cand_boxes.device)
     with torch.cuda.device(cand_boxes.device):
         err = _library().nms_greedy_keep(
             cand_boxes.data_ptr(), cls_idx.data_ptr(), valid.data_ptr(),
-            mask.data_ptr(), keep.data_ptr(), b, k, iou_thres,
+            keep.data_ptr(), b, k, iou_thres,
             torch.cuda.current_stream().cuda_stream)
     cuda_build.check(err, "nms_greedy_keep")
     greedy_keep.launches += 1

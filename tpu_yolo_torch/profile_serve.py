@@ -6,7 +6,8 @@ Serves YOLOv11-n at 640 px, batch 128, with the Detector's defaults (bf16,
 multi-label, K=1024) and seeded weights (seeded.py), times 10 batches by
 the host clock, then traces 3 batches with torch.profiler. Prints one
 JSON object: img/s, the device's busy share of the traced wall time, and
-device time per batch by kernel group and for the top kernels.
+device time per batch by kernel group, for the top kernels, and for each
+of the port's own kernels by name.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from tpu_yolo_torch.serve import Detector
 
 GROUPS = (  # first match wins; matched against the lowercased kernel name
     ("psa_attention", r"attention_\w*kernel"),
-    ("nms_greedy_keep", r"nms_(mask|walk)_kernel"),
+    ("nms_greedy_keep", r"nms_keep_kernel"),
     ("sort", r"sort|radix"),
     ("layout", r"nchwtonhwc|nhwctonchw|transpose"),
     ("conv", r"conv|xmma|implicit|cudnn|gemm|fprop|cutlass"),
@@ -100,6 +101,9 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
         "groups_ms_per_batch": groups,
         "top_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
                         for ms, n, name in kernels[:15]],
+        "own_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
+                        for ms, n, name in kernels
+                        if _group(name) in ("psa_attention", "nms_greedy_keep")],
     }))
 
 

@@ -48,6 +48,49 @@ def seeded_train_batch(rng: np.random.Generator, n: int, size: int,
     return images, gt
 
 
+NMS_SCENES = ("clustered", "uniform", "disjoint", "identical", "invalid")
+
+
+def nms_scene(rng: np.random.Generator, scene: str, b: int, k: int):
+    """Score-descending NMS candidates for the greedy keep: boxes (b, k, 4)
+    f32 xyxy, classes (b, k) int32, valid (b, k) bool.
+
+    clustered: redundant clusters in 8 classes, a tenth invalid (the scenes
+    of tests/test_pallas.py); uniform: random boxes in 80 classes, a third
+    invalid; disjoint: one class, all valid, no two boxes touch (every
+    candidate is kept and is tested against all later ones); identical:
+    one box and one class k times (only the first is kept); invalid:
+    clustered boxes, none valid."""
+    if scene in ("clustered", "invalid"):
+        n_obj = max(4, k // 24)
+        centers = rng.uniform(40, 600, (b, n_obj, 2))
+        sizes = rng.uniform(16, 160, (b, n_obj, 2))
+        obj = rng.integers(0, n_obj, (b, k))
+        c = np.take_along_axis(centers, obj[..., None], 1) + rng.normal(0, 6, (b, k, 2))
+        s = np.take_along_axis(sizes, obj[..., None], 1) * rng.uniform(0.85, 1.15, (b, k, 2))
+        boxes = np.concatenate([c - s / 2, c + s / 2], -1)
+        cls, valid = rng.integers(0, 8, (b, k)), rng.random((b, k)) > 0.1
+        if scene == "invalid":
+            valid = np.zeros((b, k), bool)
+    elif scene == "uniform":
+        xy1 = rng.uniform(0, 600, (b, k, 2))
+        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 200, (b, k, 2))], -1)
+        cls, valid = rng.integers(0, 80, (b, k)), rng.random((b, k)) > 0.3
+    elif scene == "disjoint":
+        side = int(np.ceil(np.sqrt(k)))
+        cell = np.stack([np.arange(k) % side, np.arange(k) // side], -1) * 10.0
+        xy1 = np.stack([rng.permutation(cell) for _ in range(b)])
+        boxes = np.concatenate([xy1, xy1 + rng.uniform(4, 9, (b, k, 2))], -1)
+        cls, valid = np.zeros((b, k), int), np.ones((b, k), bool)
+    elif scene == "identical":
+        boxes = np.tile(np.array([100.0, 120.0, 220.0, 200.0]), (b, k, 1))
+        cls, valid = np.full((b, k), 3), np.ones((b, k), bool)
+    else:
+        raise ValueError(f"nms_scene: {scene!r} is none of {NMS_SCENES}")
+    return (np.ascontiguousarray(boxes, np.float32),
+            np.ascontiguousarray(cls, np.int32), np.ascontiguousarray(valid))
+
+
 def serving_state(cfg, seed: int, imgs: np.ndarray, device) -> dict:
     """Unfolded state dict: `init_params(seed)` weights, class biases drawn
     from N(-3, 0.5), and every BatchNorm's mean/var set to those of its
