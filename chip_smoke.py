@@ -7,9 +7,13 @@ Builds the port's three CUDA kernels from tpu_yolo_torch/csrc, holds each
 against its plain PyTorch version, serves YOLOv11-n at 640 px through
 `Detector` and checks the result against the port on the CPU, then
 trains YOLOv11-n at 640 px and batch 64 in bf16 (one epoch of
-`trainer.train` on a seeded mini-COCO, then timed `train_step`s) and
-checks an f32 training step's losses and gradients against the CPU. Each
-phase prints one JSON line; the line before the last lists the kernels
+`trainer.train` on a seeded mini-COCO with its per-epoch eval of 64 val
+images, then timed `train_step`s) and checks an f32 training step's
+losses and gradients against the CPU, then evaluates a checkpoint of the
+serving weights through the `--test` entry point (`cli.main.run_test`,
+val batch 32, bf16) on a seeded val split and checks an f32 eval of 8 of
+its images against the CPU. Each phase prints one JSON line; the line
+before the last lists the kernels
 with their launches on the main path, errors, times and bounds (`ms` and
 `library_ms` from launches replayed out of a CUDA graph, so that the
 host's launch time stays out; `ms_with_launch` from eager calls), and the
@@ -45,10 +49,12 @@ HBM_BYTES_S = 3.35e12                       # H100 SXM memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}        # atol and rtol
 IOU_FLOPS_PER_PAIR = 14   # f32 operations of one masked IoU test
-# attention checks (dtype, BH, T): the serving shape and T=333 (not a multiple
-# of 8) with K/V resident, the 1280 px shape, T=57 and T=1 with K/V streamed
-ATTN_CASES = (("bfloat16", 256, 400), ("bfloat16", 16, 1600), ("bfloat16", 3, 57),
-              ("bfloat16", 5, 1), ("bfloat16", 200, 333), ("float32", 32, 400))
+# attention checks (dtype, BH, T): the serving shape and T=333 (not a multiple of 8)
+# with K/V resident, the 1280 px shape, eval's (val batch 32) and one
+# image's, T=57 and T=1 with K/V streamed
+ATTN_CASES = (("bfloat16", 256, 400), ("bfloat16", 16, 1600), ("bfloat16", 64, 400),
+              ("bfloat16", 2, 400), ("bfloat16", 3, 57), ("bfloat16", 5, 1),
+              ("bfloat16", 200, 333), ("float32", 32, 400))
 # greedy-keep checks (scene of seeded.nms_scene, B, K); the second group
 # stresses the walk: the most killers, one cluster, nothing valid, K=1 and
 # ragged last words. It draws from a generator of its own: the serving
@@ -57,6 +63,11 @@ NMS_CASES = (("clustered", 128, 1024), ("clustered", 8, 2048), ("clustered", 1, 
              ("uniform", 2, 8192))
 NMS_STRESS_CASES = (("disjoint", 4, 1024), ("identical", 4, 1024), ("invalid", 2, 1024),
                     ("clustered", 2, 1), ("clustered", 3, 33), ("uniform", 4, 1000))
+# eval's shape (val batch 32, K=2048), from a generator of its own too
+NMS_EVAL_CASES = (("clustered", 32, 2048), ("uniform", 32, 2048))
+EVAL_IMAGES = 256    # the seeded val split of phase (j)
+EVAL_BATCH = 32      # --val-batch-size
+EVAL_F32_IMAGES = 8  # its first images, evaluated in f32 on the card and the CPU
 
 
 def emit(phase: str, **fields):
@@ -164,9 +175,13 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0],
+         python=sys.version.split()[0], numpy=np.__version__,
          have_cv2=importlib.util.find_spec("cv2") is not None,
          have_yaml=importlib.util.find_spec("yaml") is not None)
+
+    # the host AP integrates with np.trapezoid (eval/metrics.py)
+    check(np.lib.NumpyVersion(np.__version__) >= "2.0.0",
+          f"numpy {np.__version__}: eval needs numpy >= 2.0 (np.trapezoid)")
 
     # (b) build the three kernels, one nvcc each, in parallel
     t0 = time.perf_counter()
@@ -207,8 +222,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     nms_rows = []
     stress_rng = np.random.default_rng(SEED + 3)
-    for scene, b, k in NMS_CASES + NMS_STRESS_CASES:
-        scene_rng = rng if (scene, b, k) in NMS_CASES else stress_rng
+    eval_rng = np.random.default_rng(SEED + 4)
+    for scene, b, k in NMS_CASES + NMS_STRESS_CASES + NMS_EVAL_CASES:
+        scene_rng = (rng if (scene, b, k) in NMS_CASES else
+                     eval_rng if (scene, b, k) in NMS_EVAL_CASES else stress_rng)
         boxes, cls, valid = (torch.from_numpy(a).to(dev)
                              for a in nms_scene(scene_rng, scene, b, k))
         got = nms_cuda.greedy_keep(boxes, cls, valid, 0.65)
@@ -370,6 +387,10 @@ def main() -> int:
     # (i) one f32 training step's losses and gradients, card against CPU
     _train_f32_phase(cfg, dev, imgs[:2])
 
+    # (j) the eval path: --test's run_test on a seeded val split, counted,
+    # then an f32 eval of its first images on the card against the CPU
+    _eval_phase(cfg, smi, state, captured, launches)
+
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
         kernels = _kernel_rows(captured, launches)
@@ -416,13 +437,14 @@ def _train_phase(cfg, dev, smi, captured, launches):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         data_dir = write_mini_coco(os.path.join(tmp, "coco"), TRAIN_IMAGES,
-                                   hw=(480, 640), seed=SEED)
+                                   n_val=TRAIN_BATCH, hw=(480, 640), seed=SEED)
         write_s = time.perf_counter() - t0
         args = argparse.Namespace(
             model_size="n", input_size=SIZE, batch_size=TRAIN_BATCH, epochs=1,
             data_dir=data_dir, save_dir=os.path.join(tmp, "weights"), resume="",
             weights="", workers=8, gt_bucket=0, remat=False, remat_level="stage",
-            tensorboard=False)
+            tensorboard=False, val_batch_size=EVAL_BATCH, native_eval="auto",
+            max_nms=2048)
         loss_mod.task_aligned_assigner = assigner_tap
         zero_counts()
         t0 = time.perf_counter()
@@ -433,6 +455,9 @@ def _train_phase(cfg, dev, smi, captured, launches):
             loss_mod.task_aligned_assigner = assigner_fn
         epoch_s = time.perf_counter() - t0
         epoch_launches = topk_cuda.topk_mask.launches
+        # the per-epoch eval of the EMA weights on the val split
+        eval_launches = {"attention": attention_cuda.fused_attention.launches,
+                         "nms": nms_cuda.greedy_keep.launches}
         with open(os.path.join(args.save_dir, "step.csv")) as f:
             csv_rows = f.read().strip().splitlines()
         stripped = load_checkpoint(os.path.join(args.save_dir, "last.ckpt"))
@@ -445,8 +470,10 @@ def _train_phase(cfg, dev, smi, captured, launches):
     check(epoch_launches > 0 and epoch_launches == calls["assigner"] == steps,
           f"top-k launches {epoch_launches}, assigner calls {calls['assigner']}")
     check(len(csv_rows) == 2 and all(
-        np.isfinite(float(v)) for v in csv_rows[1].split(",")[1:4]),
+        np.isfinite(float(v)) for v in csv_rows[1].split(",")[1:]),
         f"step.csv: {csv_rows}")
+    check(min(eval_launches.values()) > 0,
+          f"the epoch's eval did not run both kernels: {eval_launches}")
 
     def moved(now, before):
         return max(float((now[k].float().cpu() - before[k]).abs().max())
@@ -510,6 +537,7 @@ def _train_phase(cfg, dev, smi, captured, launches):
              images=TRAIN_IMAGES, steps=steps, seconds=epoch_s,
              write_images_seconds=write_s, topk_launches=epoch_launches,
              assigner_calls=steps, step_csv=csv_rows[1], moved=movement,
+             val_images=TRAIN_BATCH, eval_launches=eval_launches,
              last_ckpt_vs_ema_max_rel_err=ckpt_err),
          train_step=dict(
              gt_bucket=gt.shape[1], topk_shape=list(captured["topk"].shape),
@@ -585,6 +613,153 @@ def _train_f32_phase(cfg, dev, two_images):
           f"worst gradient {worst} {rel[worst]}, median {median}")
 
 
+def _eval_phase(cfg, smi, state, captured, launches):
+    """Phase (j). Fills captured["eval_attention"], captured["eval_nms"]
+    and launches["eval_attention"], launches["eval_nms"] (per run_test)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_yolo_torch.cli import main as cli
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+    from tpu_yolo_torch.data.loader import make_val_loader
+    from tpu_yolo_torch.eval import evaluator
+    from tpu_yolo_torch.io.checkpoint import save_checkpoint
+    from tpu_yolo_torch.io.weights import to_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda
+    from tpu_yolo_torch.seeded import label_from_detections, write_mini_coco
+
+    hyp = load_hyperparams()
+    attn_fn, keep_fn = blocks.fused_attention, nms.greedy_keep
+    eval_fn = evaluator.evaluate
+    match_fn, ap_fn = evaluator.match_predictions, evaluator.average_precision
+    clock = {}
+
+    def timed(name, fn):
+        def tap(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                clock[name] = clock.get(name, 0.0) + time.perf_counter() - t0
+        return tap
+
+    def attn_tap(q, k, v, scale):
+        captured.setdefault("eval_attention", (q, k, v, scale))
+        return attn_fn(q, k, v, scale)
+
+    def keep_tap(boxes, cls, valid, thr):
+        captured.setdefault("eval_nms", (boxes, cls, valid, thr))
+        return keep_fn(boxes, cls, valid, thr)
+
+    def run_test(args):
+        """run_test with its stdout kept, the wall time of `evaluate` and
+        the host's matching and AP timed, and both kernels counted."""
+        clock.clear()
+        attention_cuda.fused_attention.launches = 0
+        nms_cuda.greedy_keep.launches = 0
+        blocks.fused_attention, nms.greedy_keep = attn_tap, keep_tap
+        evaluator.evaluate = timed("evaluate", eval_fn)
+        evaluator.match_predictions = timed("host", match_fn)
+        evaluator.average_precision = timed("host", ap_fn)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                result = cli.run_test(args, hyp, cfg)
+            torch.cuda.synchronize()
+        finally:
+            blocks.fused_attention, nms.greedy_keep = attn_fn, keep_fn
+            evaluator.evaluate = eval_fn
+            evaluator.match_predictions, evaluator.average_precision = match_fn, ap_fn
+        counts = {"attention": attention_cuda.fused_attention.launches,
+                  "nms": nms_cuda.greedy_keep.launches}
+        lines = out.getvalue().strip().splitlines()
+        print("\n".join(lines), flush=True)
+        return result, counts, lines, dict(clock)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the val split's labels are 30 f32 detections an image of the
+        # evaluated weights (a third shifted, a third with another class),
+        # so that mAP is far from 0 and moves at every IoU threshold
+        t0 = time.perf_counter()
+        root = write_mini_coco(os.path.join(tmp, "coco"), 0, n_val=EVAL_IMAGES,
+                               hw=(480, 640), seed=SEED)
+        label_from_detections(root, YOLO.from_state_dict(cfg, state), SIZE,
+                              device="cuda")
+        ckpt = os.path.join(tmp, "serving.ckpt")
+        save_checkpoint(ckpt, {"params": to_jax_params(state)})
+        setup_s = time.perf_counter() - t0
+        args = argparse.Namespace(
+            weights=ckpt, save_dir=tmp, data_dir=root, input_size=SIZE,
+            val_batch_size=EVAL_BATCH, workers=8, native_eval="auto",
+            coco_metrics=False, plot=False, max_nms=2048, device="cuda")
+        runs = [run_test(args) for _ in range(2)]
+        result, counts, lines, _ = runs[0]
+        launches["eval_attention"] = counts["attention"]
+        launches["eval_nms"] = counts["nms"]
+        batches = -(-EVAL_IMAGES // EVAL_BATCH)
+        check(counts["nms"] == batches and counts["attention"] >= batches,
+              f"kernel launches in run_test: {counts}, {batches} batches")
+        check(all(np.isfinite(v) and 0 <= v <= 1 for v in result) and result[1] > 0,
+              f"run_test result {result}")
+        cert = [ln for ln in lines if ln.startswith("[eval] candidate envelope: ")]
+        check(len(cert) == 1 and f"/{EVAL_IMAGES} images at spill risk (budget "
+              f"K=2048," in cert[0], f"no spill certificate line: {lines}")
+        loader = [ln for ln in lines if ln.startswith("[eval] loader: ")]
+        check(len(loader) == 1, f"no loader line: {lines}")
+
+        # f32 on the card (TF32 off) against the CPU, first images
+        dataset = DetectionDataset(split_files(root, "val2017")[:EVAL_F32_IMAGES],
+                                   SIZE, hyp, augment=False)
+        outs, f32 = {}, {}
+        predict = evaluator.predict_step
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for device in ("cuda", "cpu"):
+                def tap(*a, device=device, **kw):
+                    out = predict(*a, **kw)
+                    outs[device] = out
+                    return out
+
+                evaluator.predict_step = tap
+                f32[device] = eval_fn(
+                    YOLO.from_state_dict(cfg, state),
+                    make_val_loader(dataset, EVAL_F32_IMAGES, native="off"), SIZE,
+                    compute_dtype=torch.float32, device=device)
+        finally:
+            evaluator.predict_step = predict
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    rows = [_agreement(_row(outs["cuda"], i), _row(outs["cpu"], i))
+            for i in range(EVAL_F32_IMAGES)]
+    tuple_err = max(abs(a - b) for a, b in zip(f32["cuda"], f32["cpu"]))
+    walls = [r[3]["evaluate"] for r in runs]
+    emit("eval", model="v11-n", size=SIZE, val_batch=EVAL_BATCH, dtype="bfloat16",
+         max_nms=2048, images=EVAL_IMAGES, nvidia_smi=smi, loader=loader[0],
+         setup_seconds=setup_s, map_tuple=list(result), certificate=cert[0],
+         launches_per_run=counts, second_run_map_tuple=list(runs[1][0]),
+         runs=[dict(evaluate_s=r[3]["evaluate"], img_per_s=EVAL_IMAGES / r[3]["evaluate"],
+                    host_matching_and_ap_s=r[3]["host"],
+                    host_share=r[3]["host"] / r[3]["evaluate"]) for r in runs],
+         img_per_s=EVAL_IMAGES / walls[1],
+         f32_card_vs_cpu=dict(images=EVAL_F32_IMAGES, card=list(f32["cuda"]),
+                              cpu=list(f32["cpu"]), tuple_max_abs_err=tuple_err,
+                              per_image=rows),
+         threshold="f32 card vs CPU: per image and both ways, >= 98% of detections "
+                   "have a same-class partner at IoU >= 0.9, partners' boxes within "
+                   "0.05 px and scores within 5e-4; (mAP, mAP50, R, P) within 1e-4")
+    for i, agree in enumerate(rows):
+        check(min(agree["match"]) >= 0.98 and agree["max_box_err_px"] <= 0.05
+              and agree["max_score_err"] <= 5e-4, f"f32 eval, image {i}: {agree}")
+    check(tuple_err <= 1e-4, f"f32 eval tuples: card {f32['cuda']}, cpu {f32['cpu']}")
+
+
 def _kernel_rows(captured, launches):
     import torch
 
@@ -605,6 +780,16 @@ def _kernel_rows(captured, launches):
         launches=launches["attention"], max_abs_err=attn_err,
         **_attention_times(q, k, v, scale))]
 
+    # at eval's inputs (val batch 32: K/V streamed), counted in run_test
+    q2, k2, v2, scale2 = captured["eval_attention"]
+    want = attention_cuda.attention_plain(q2, k2, v2, scale2).float()
+    err = (attention_cuda.fused_attention(q2, k2, v2, scale2).float() - want).abs()
+    check(bool((err <= tol + tol * want.abs()).all()) and q2.dtype == q.dtype,
+          "attention kernel vs plain at eval's inputs")
+    kernels[0]["eval_shape"] = dict(launches=launches["eval_attention"],
+                                    max_abs_err=float(err.max()),
+                                    **_attention_times(q2, k2, v2, scale2))
+
     # the same kernel at the 1280 px shape, K/V streamed (not on the main path)
     gen = torch.Generator(device=q.device).manual_seed(SEED)
     q2, k2 = (torch.randn(16, 1600, 32, device=q.device, generator=gen).to(q.dtype)
@@ -612,26 +797,13 @@ def _kernel_rows(captured, launches):
     v2 = torch.randn(16, 1600, 64, device=q.device, generator=gen).to(q.dtype)
     kernels[0]["second_shape"] = _attention_times(q2, k2, v2, scale)
 
-    boxes, cls, valid, thr = captured["nms"]
-    got = nms_cuda.greedy_keep(boxes, cls, valid, thr)
-    want = nms_cuda.greedy_keep_plain(boxes, cls, valid, thr)
-    check(torch.equal(got, want), "NMS kernel vs plain at the main-path inputs")
-    bound, bound_by = nms_cost(boxes, cls, valid)
-    ms = cuda_ms(lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr), graph=True)
     kernels.append(dict(
         name="nms_greedy_keep", route="cuda",
         source="tpu_yolo_torch/csrc/nms_keep.cu",
         replaces="tpu_yolo/ops/nms_pallas.py:145",
-        shape=dict(b=boxes.shape[0], k=boxes.shape[1],
-                   valid=int(valid.sum()), kept=int(got.sum())),
-        launches=launches["nms"],
-        max_abs_err=float((got.int() - want.int()).abs().max()),
-        ms=ms, ms_with_launch=cuda_ms(
-            lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr)),
-        plain_ms=cuda_ms(lambda: nms_cuda.greedy_keep_plain(boxes, cls, valid, thr),
-                         iters=5),
-        bound_ms=bound, bound_by=bound_by, ms_over_bound=ms / bound,
-        library_ms=None))
+        launches=launches["nms"], **_keep_times(*captured["nms"]),
+        eval_shape=dict(launches=launches["eval_nms"],
+                        **_keep_times(*captured["eval_nms"]))))
 
     x = captured["topk"]
     got = topk_cuda.topk_mask(x, TOP_K)
@@ -658,6 +830,32 @@ def _kernel_rows(captured, launches):
         bound_ms=bound, bound_by=bound_by,
         library_ms=cuda_ms(library, iters=5, graph=True)))
     return kernels
+
+
+def _keep_times(boxes, cls, valid, thr):
+    """The greedy keep at these inputs: bit-equal to its plain version
+    (checked), its shape with the valid and kept counts, times and bound.
+    `ms` is of launches replayed from a CUDA graph."""
+    import torch
+
+    from tpu_yolo_torch.ops import nms_cuda
+
+    got = nms_cuda.greedy_keep(boxes, cls, valid, thr)
+    want = nms_cuda.greedy_keep_plain(boxes, cls, valid, thr)
+    check(torch.equal(got, want),
+          f"NMS kernel vs plain at the captured inputs {tuple(boxes.shape)}")
+    bound, bound_by = nms_cost(boxes, cls, valid)
+    ms = cuda_ms(lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr), graph=True)
+    return dict(
+        shape=dict(b=boxes.shape[0], k=boxes.shape[1],
+                   valid=int(valid.sum()), kept=int(got.sum())),
+        max_abs_err=float((got.int() - want.int()).abs().max()),
+        ms=ms, ms_with_launch=cuda_ms(
+            lambda: nms_cuda.greedy_keep(boxes, cls, valid, thr)),
+        plain_ms=cuda_ms(lambda: nms_cuda.greedy_keep_plain(boxes, cls, valid, thr),
+                         iters=5),
+        bound_ms=bound, bound_by=bound_by, ms_over_bound=ms / bound,
+        library_ms=None)
 
 
 def _attention_times(q, k, v, scale):

@@ -18,9 +18,14 @@ from tpu_yolo.train import step as jax_step
 from tpu_yolo.train import trainer as jax_trainer
 from tpu_yolo_torch.cli import main as cli
 from tpu_yolo_torch.core.config import ModelConfig, load_hyperparams
+from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+from tpu_yolo_torch.data.image import bgr_hwc_to_rgb, letterbox, load_image
+from tpu_yolo_torch.data.loader import make_val_loader
+from tpu_yolo_torch.eval.evaluator import evaluate
 from tpu_yolo_torch.io import checkpoint as ckpt_io
 from tpu_yolo_torch.io.weights import to_jax_params
-from tpu_yolo_torch.seeded import write_mini_coco
+from tpu_yolo_torch.models.yolov11 import YOLO
+from tpu_yolo_torch.seeded import eval_state, label_from_detections, write_mini_coco
 from tpu_yolo_torch.train import trainer
 from tpu_yolo_torch.train.trainer import train
 
@@ -48,7 +53,7 @@ def _args(data_dir, save_dir, **over):
     kw = dict(model_size="n", input_size=64, batch_size=4, epochs=2,
               data_dir=data_dir, save_dir=str(save_dir), resume="", weights="",
               workers=1, gt_bucket=0, remat=False, remat_level="stage",
-              tensorboard=False)
+              tensorboard=False, val_batch_size=4, native_eval="off", max_nms=2048)
     kw.update(over)
     return argparse.Namespace(**kw)
 
@@ -196,10 +201,74 @@ def test_port_resumes_from_the_jax_packages_checkpoint(data_dir, hyp, tmp_path, 
     assert state.step == 1 + 2 and state.ema_updates == 1   # one epoch left
 
 
-def test_run_eval_names_the_eval_slice(tmp_path, hyp):
-    root = write_mini_coco(str(tmp_path / "with_val"), 4, 2)
-    with pytest.raises(NotImplementedError, match="eval slice"):
-        train(_args(root, tmp_path / "out", epochs=1), hyp, TINY, device="cpu")
+@pytest.fixture(scope="module")
+def val_run(tmp_path_factory):
+    """Two epochs at 128 px on a split with 6 val images, fine-tuned from
+    eval_state weights with val labels from their own detections (so that
+    mAP is far from 0), each epoch's EMA state and eval result recorded.
+    The LR is 0, so that only the BatchNorm statistics move (the one EMA
+    update of these 2 steps is step 0's) and the labels stay met."""
+    root = write_mini_coco(str(tmp_path_factory.mktemp("with_val")), 4, 6,
+                           hw=(96, 128))
+    images = np.stack([bgr_hwc_to_rgb(letterbox(load_image(f, 128)[0], 128)[0])
+                       for f in split_files(root, "val2017")])
+    state = eval_state(TINY, 0, images, "cpu")
+    label_from_detections(root, YOLO.from_state_dict(TINY, state), 128, per_image=12)
+    start = os.path.join(root, "start.ckpt")
+    ckpt_io.save_checkpoint(start, {"params": to_jax_params(state)})
+    h = load_hyperparams()
+    h["names"] = {0: "red", 1: "blue"}
+    h.update(max_lr=0.0, min_lr=0.0)
+    seen = []
+    real = trainer._run_eval
+
+    def tap(args, hyp, cfg, state, device):
+        ema = {k: v.clone() for k, v in state.ema.items()}
+        seen.append((ema, real(args, hyp, cfg, state, device)))
+        return seen[-1][1]
+
+    save_dir = tmp_path_factory.mktemp("val_run")
+    trainer._run_eval = tap
+    try:
+        train(_args(root, save_dir, resume=start, input_size=128), h, TINY,
+              device="cpu")
+    finally:
+        trainer._run_eval = real
+    return root, save_dir, h, seen
+
+
+def test_per_epoch_eval_scores_the_ema_weights(val_run):
+    """Each step.csv row holds the eval of that epoch's EMA weights: a
+    direct evaluate of the recorded EMA state gives the same four numbers
+    and the row's strings."""
+    root, save_dir, hyp, seen = val_run
+    with open(save_dir / "step.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == len(seen) == 2
+    dataset = DetectionDataset(split_files(root, "val2017"), 128, hyp, augment=False)
+    for row, (ema, result) in zip(rows, seen):
+        direct = evaluate(YOLO.from_state_dict(TINY, ema),
+                          make_val_loader(dataset, 4, num_workers=1, native="off"),
+                          128, device="cpu")
+        assert direct == result
+        assert [row[k] for k in ("mAP", "mAP@50", "Recall", "Precision")] == [
+            f"{v:.3f}" for v in direct]
+        assert direct[0] > 0.05
+
+
+def test_best_ckpt_follows_map(hyp, tmp_path, monkeypatch):
+    """best.ckpt is written at each new best mAP and kept otherwise."""
+    root = write_mini_coco(str(tmp_path / "coco"), 4, 2, hw=(48, 64))
+    for epochs, best_epoch, best in ((2, 1, 0.2), (4, 3, 0.3)):
+        maps = iter([0.2, 0.1, 0.3, 0.25])
+        monkeypatch.setattr(trainer, "evaluate",
+                            lambda *a, maps=maps, **k: (next(maps), 0.5, 0.5, 0.5))
+        train(_args(root, tmp_path / f"run{epochs}", epochs=epochs), hyp, TINY,
+              device="cpu")
+        payload = ckpt_io.load_checkpoint(str(tmp_path / f"run{epochs}" / "best.ckpt"))
+        last = ckpt_io.load_checkpoint(str(tmp_path / f"run{epochs}" / "last.ckpt"))
+        assert (payload["epoch"], payload["best"]) == (best_epoch, best)
+        assert (last["epoch"], last["best"]) == (epochs, best)
 
 
 def test_divergence_guard_saves_crash_ckpt(data_dir, hyp, tmp_path):
@@ -261,7 +330,10 @@ def test_cli_flags():
     args = cli.parse_args(["--train"])
     assert args.device == "cuda" and args.batch_size == 32 and args.epochs == 600
     assert args.remat_level == "stage" and args.gt_bucket == 0
-    for later in ("--test", "--export", "--native-train", "--device-augment",
+    args = cli.parse_args(["--test"])
+    assert args.test and args.val_batch_size == 32 and args.max_nms == 2048
+    assert args.native_eval == "auto" and not args.coco_metrics and not args.plot
+    for later in ("--export", "--native-train", "--device-augment",
                   "--distributed", "--profile"):
         with pytest.raises(SystemExit):
             cli.parse_args([later])

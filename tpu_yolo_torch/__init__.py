@@ -1,5 +1,5 @@
-"""tpu_yolo_torch — YOLOv11 serving and training in PyTorch on an NVIDIA
-H100.
+"""tpu_yolo_torch — YOLOv11 serving, training and evaluation in PyTorch
+on an NVIDIA H100.
 
 The PyTorch/CUDA port of `tpu_yolo`, which stays the reference. It
 imports torch and numpy only, never JAX or `tpu_yolo`. Convolutions go
@@ -18,9 +18,10 @@ Package layout:
   io/      JAX param trees and train states, torch/Ultralytics state
            dicts, .ckpt files (read and written)
   data/    image decode and letterbox, labels, augmentation, dataset,
-           loader
+           loaders (the eval one also over the native C++ pipeline)
   train/   loss and assigner, optimizer and EMA, train step, trainer
-  cli/     `python -m tpu_yolo_torch.cli.main --train`
+  eval/    evaluator, TP matching and AP, the COCO protocol, plots
+  cli/     `python -m tpu_yolo_torch.cli.main --train | --test`
   serve.py the Detector
 """
 

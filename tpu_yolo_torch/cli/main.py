@@ -1,16 +1,19 @@
 #!/usr/bin/env python
-"""tpu_yolo_torch CLI: the --train slice of `tpu_yolo/cli/main.py`, with
-the flags that reach the trainer, plus --device.
+"""tpu_yolo_torch CLI: the --train and --test slices of
+`tpu_yolo/cli/main.py`, with the flags that reach the trainer and the
+evaluator, plus --device.
 
     python -m tpu_yolo_torch.cli.main --train --data-dir ./COCO --batch-size 64
+    python -m tpu_yolo_torch.cli.main --test --data-dir ./COCO --weights best.ckpt
 
-Evaluation (--test), export, the profile banner, the native and
-on-device loaders and multi-process training are not ported yet and
-their flags are not declared.
+Export, the profile banner, the native train and on-device loaders and
+multi-process training or evaluation are not ported yet and their flags
+are not declared.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import random
 
 import numpy as np
@@ -21,17 +24,41 @@ def parse_args(argv=None):
     p.add_argument("--model-size", default="n", choices=list("ntsmlx"))
     p.add_argument("--input-size", default=640, type=int)
     p.add_argument("--batch-size", default=32, type=int)
+    p.add_argument("--val-batch-size", default=32, type=int)
     p.add_argument("--epochs", default=600, type=int)
     p.add_argument("--train", action="store_true")
-    p.add_argument("--weights", default="", help=".pt/.npz to load")
+    p.add_argument("--test", action="store_true")
+    p.add_argument("--coco-metrics", action="store_true",
+                   help="with --test: also compute the COCO-API "
+                        "12-metric table (AP/AP50/AP75, AP by area, "
+                        "AR@1/10/100 — first-party protocol, "
+                        "eval/coco_eval.py) in original-image space")
+    p.add_argument("--weights", default="",
+                   help=".ckpt/.pt/.npz to load (--test reads "
+                        "save-dir/best.ckpt without it)")
     p.add_argument("--resume", default="", help="checkpoint to resume from")
     p.add_argument("--data-dir", default="./COCO")
     p.add_argument("--save-dir", default="./weights")
     p.add_argument("--hyp", default="", help="hyperparameter yaml override")
     p.add_argument("--workers", default=8, type=int)
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--plot", action="store_true",
+                   help="save eval curves (needs matplotlib)")
     p.add_argument("--tensorboard", action="store_true",
                    help="also log scalars to save-dir/tb (CSV always written)")
+    p.add_argument("--max-nms", default=2048, type=int,
+                   help="eval NMS candidate budget K (capped at 8192). "
+                        "The K-budget output is an exact prefix of the "
+                        "reference's max_nms=30000 output (prefix "
+                        "property, ops/nms.py); every eval prints a "
+                        "per-run spill certificate and says when to "
+                        "raise this")
+    p.add_argument("--native-eval", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="eval data loader: native C++ pipeline when the "
+                        ".so exists (auto, the default), required (on), "
+                        "or the Python cv2 loader (off — the parity "
+                        "oracle path; identical geometry either way)")
 
     def _nonneg(v):
         iv = int(v)
@@ -66,6 +93,59 @@ def setup_seed(seed: int):
     torch.manual_seed(seed)
 
 
+def load_model(args, cfg):
+    """The BN-folded YOLO of --weights, or of save-dir/best.ckpt without
+    it (a `.ckpt`'s EMA weights when it has them)."""
+    from tpu_yolo_torch.io.weights import load_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+
+    path = args.weights or os.path.join(args.save_dir, "best.ckpt")
+    return YOLO.from_state_dict(cfg, load_params(path, cfg)).fold_batchnorm()
+
+
+def run_test(args, hyp, cfg, max_images: int | None = None):
+    """The --test body: load the weights, build the val2017 loader, run
+    the eval pass on one device (args.device). Returns (mAP, mAP50,
+    recall, precision)."""
+    from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+    from tpu_yolo_torch.data.loader import make_val_loader
+    from tpu_yolo_torch.data.native_loader import NativeEvalLoader
+    from tpu_yolo_torch.eval import evaluator
+
+    model = load_model(args, cfg)
+    filenames = split_files(args.data_dir, "val2017")
+    cache = os.path.join(args.data_dir, "val2017.cache.npy")
+    if max_images is not None:
+        filenames = filenames[:max_images]
+        # the label cache stores the full dict it was built with, so a
+        # truncated run must not share the full-set cache
+        cache = os.path.join(args.data_dir,
+                             f"val2017.first{max_images}.cache.npy")
+    dataset = DetectionDataset(
+        filenames, args.input_size, hyp, augment=False, cache_path=cache)
+    loader = make_val_loader(dataset, args.val_batch_size,
+                             num_workers=args.workers, native=args.native_eval)
+    print(f"[eval] loader: "
+          f"{'native' if isinstance(loader, NativeEvalLoader) else 'python'}",
+          flush=True)
+
+    coco_ctx = None
+    if args.coco_metrics:
+        coco_ctx = evaluator.build_coco_ctx(dataset, args.input_size)
+
+    result = evaluator.evaluate(
+        model, loader, args.input_size,
+        plot_dir=args.save_dir if args.plot else None,
+        names=[v for _, v in sorted(hyp["names"].items())],
+        progress=True, coco_ctx=coco_ctx, max_nms=args.max_nms,
+        device=args.device)
+
+    if coco_ctx is not None:
+        from tpu_yolo_torch.eval.coco_eval import summarize
+        print(summarize(coco_ctx[0].accumulate()))
+    return result
+
+
 def main(argv=None):
     args = parse_args(argv)
     setup_seed(args.seed)
@@ -79,6 +159,11 @@ def main(argv=None):
         from tpu_yolo_torch.train.trainer import train
 
         train(args, hyp, cfg, device=args.device)
+
+    if args.test:
+        m_ap, m_ap50, recall, precision = run_test(args, hyp, cfg)
+        print(f"mAP: {m_ap:.3f}  mAP@50: {m_ap50:.3f}  "
+              f"Recall: {recall:.3f}  Precision: {precision:.3f}")
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ so a batch goes to the card as one copy of raw bytes.
 """
 from __future__ import annotations
 
+import os
 import random
 
 import numpy as np
@@ -13,6 +14,15 @@ import numpy as np
 from tpu_yolo_torch.data import augment as A
 from tpu_yolo_torch.data.image import bgr_hwc_to_rgb, letterbox, load_image
 from tpu_yolo_torch.data.labels import load_labels
+
+
+def split_files(data_dir: str, split: str) -> list[str]:
+    """The image paths of a COCO-layout split: the names listed in
+    <data_dir>/<split>.txt, under <data_dir>/images/<split>/."""
+    with open(os.path.join(data_dir, f"{split}.txt")) as f:
+        return [os.path.join(data_dir, "images", split,
+                             os.path.basename(line.strip()))
+                for line in f if line.strip()]
 
 
 class DetectionDataset:

@@ -61,6 +61,26 @@ def letterbox(img: np.ndarray, input_size: int, augment: bool = False):
     return img, (r, r), (pad_w, pad_h)
 
 
+def eval_geometry(orig_hw, input_size: int):
+    """Original-image -> letterboxed-pixel mapping of the eval decode
+    path (load_image prescale, then letterbox, augment=False), without
+    decoding the image.
+
+    Returns (gain (gx, gy), pad (pad_w, pad_h)) such that
+    x_lb = x_orig * gx + pad_w: the mapping DetectionDataset applies to
+    GT labels, so detections are un-letterboxed with its exact inverse
+    (the COCO-protocol metrics, eval/coco_eval.py, whose area buckets
+    are defined in original-image pixels)."""
+    h, w = orig_hw
+    r1 = input_size / max(h, w)
+    w1, h1 = (int(w * r1), int(h * r1)) if r1 != 1 else (w, h)
+    r2 = min(input_size / h1, input_size / w1, 1.0)
+    new_w, new_h = int(round(w1 * r2)), int(round(h1 * r2))
+    pad_w = (input_size - new_w) / 2
+    pad_h = (input_size - new_h) / 2
+    return (r2 * w1 / w, r2 * h1 / h), (pad_w, pad_h)
+
+
 def bgr_hwc_to_rgb(img: np.ndarray) -> np.ndarray:
     """HWC BGR (OpenCV) -> HWC RGB contiguous uint8."""
     return np.ascontiguousarray(img[:, :, ::-1])

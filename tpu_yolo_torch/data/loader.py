@@ -107,3 +107,27 @@ class ShardSampler:
         per = -(-self.n // self.num_shards)
         padded = np.concatenate([idx, idx[: per * self.num_shards - self.n]])
         return padded[self.shard::self.num_shards]
+
+
+def make_val_loader(dataset, batch_size: int, num_workers: int = 8,
+                    native: str = "auto"):
+    """The eval loader over `dataset` (DetectionDataset(augment=False)),
+    in dataset order. `native`: "auto" takes the native C++ pipeline
+    (data/native_loader.py::NativeEvalLoader: the same label geometry,
+    decode and letterbox in a GIL-free C++ pool) when its library is
+    there, else the Python loader; "on" requires the native pipeline;
+    "off" takes the Python loader, the parity oracle."""
+    if native not in ("auto", "on", "off"):
+        raise ValueError(f"native must be auto|on|off, got {native!r}")
+    if native != "off":
+        from tpu_yolo_torch.data import native_loader as nl
+        if nl.available():
+            return nl.NativeEvalLoader(dataset, batch_size,
+                                       threads=max(num_workers, 1))
+        if native == "on":
+            raise RuntimeError(
+                "native eval loader requested (--native-eval on) but "
+                "native/libtpuyolo_data.so is unavailable; run "
+                "`make -C native`")
+    return DataLoader(dataset, batch_size, shuffle=False,
+                      num_workers=num_workers)

@@ -28,6 +28,8 @@ import re
 import numpy as np
 import torch
 
+from tpu_yolo_torch.io.checkpoint import load_checkpoint
+
 # ---------------------------------------------------------------------------
 # Raw tensor extraction from torch files.
 # ---------------------------------------------------------------------------
@@ -375,3 +377,13 @@ def convert_state_dict(state: dict[str, np.ndarray], cfg,
 def load_checkpoint_params(path: str, cfg, source_format: str | None = None):
     """One-call load: torch/npz file -> the port's state dict for `cfg`."""
     return convert_state_dict(load_torch_state_dict(path), cfg, source_format)
+
+
+def load_params(path: str, cfg) -> dict[str, torch.Tensor]:
+    """The port's state dict for `cfg` from a weights file: a `.ckpt` of
+    either package (its EMA weights when it has them, else its params),
+    or a reference / Ultralytics torch file or `.npz`."""
+    if path.endswith(".ckpt"):
+        payload = load_checkpoint(path)
+        return from_jax_params(payload.get("ema_params") or payload["params"], cfg)
+    return load_checkpoint_params(path, cfg)

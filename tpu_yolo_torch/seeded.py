@@ -118,6 +118,35 @@ def serving_state(cfg, seed: int, imgs: np.ndarray, device) -> dict:
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
+def eval_state(cfg, seed: int, imgs: np.ndarray, device) -> dict:
+    """`serving_state` made for eval runs at 64-128 px on the CPU, set
+    from one pass over `imgs`: at each level the head's last class
+    weights are scaled so that the logits' image-dependent part has unit
+    spread, with biases from N(0, 0.3), so that scores spread over
+    (0, 1) and no logit comes near the preimage of conf 0.001 (-6.9),
+    where bf16 rounding could move a candidate across the threshold; the
+    box weights are scaled to a spread of 0.3 and the bias of one stride
+    a side raised by 4, so that boxes of about two strides fit inside
+    such images."""
+    rng = np.random.default_rng(seed + 1)
+    state = serving_state(cfg, seed, imgs, device)
+    model = YOLO.from_state_dict(cfg, state).to(device)
+    with torch.no_grad():
+        raw = model.forward_raw(torch.from_numpy(imgs).to(device).float() / 255)
+    reg4 = 4 * cfg.reg_max
+    for i, m in enumerate(raw):
+        box_w, cls_w = f"head.box.{i}.2.w", f"head.cls.{i}.4.w"
+        box_b, cls_b = f"head.box.{i}.2.b", f"head.cls.{i}.4.b"
+        box = m[..., :reg4] - state[box_b].to(device)
+        cls = m[..., reg4:] - state[cls_b].to(device)
+        state[box_w] *= 0.3 / float(box.std())
+        state[box_b].view(4, cfg.reg_max)[:, 1] += 4.0
+        state[cls_w] /= float(cls.std())
+        state[cls_b] = torch.from_numpy(
+            rng.normal(0.0, 0.3, cfg.num_classes).astype(np.float32))
+    return state
+
+
 def write_mini_coco(root: str, n_train: int, n_val: int = 0,
                     hw: tuple[int, int] = (120, 160), seed: int = 0,
                     num_classes: int = 2) -> str:
@@ -152,3 +181,54 @@ def write_mini_coco(root: str, n_train: int, n_val: int = 0,
         with open(os.path.join(root, f"{split}.txt"), "w") as f:
             f.write("\n".join(names) + "\n")
     return root
+
+
+def label_from_detections(root: str, model, input_size: int, device="cpu",
+                          per_image: int = 30) -> None:
+    """Rewrite the val2017 labels under `root` (a `write_mini_coco` tree)
+    from `model`'s own detections, so that a mAP over the split is
+    far from 0 and moves at every IoU threshold. `model` runs in f32 on
+    `device` with the eval settings (conf 0.001, IoU 0.65); per image, its
+    `per_image` top-scoring detections that lie inside the image become
+    labels: the first of every three as it is, the second shifted right
+    by a quarter of its width, the third given the next class. Boxes go
+    back to original-image pixels through `eval_geometry`.
+    `model` is taken over (folded and moved), as `evaluate` does."""
+    from tpu_yolo_torch.data.dataset import split_files
+    from tpu_yolo_torch.data.image import (bgr_hwc_to_rgb, eval_geometry,
+                                           letterbox, load_image)
+    from tpu_yolo_torch.eval.evaluator import predict_step
+
+    files = split_files(root, "val2017")
+    nc = model.cfg.num_classes
+    model = model.fold_batchnorm().to(device=device, dtype=torch.float32,
+                                      memory_format=torch.channels_last).eval()
+    for lo in range(0, len(files), 32):
+        images, sizes = [], []
+        for path in files[lo:lo + 32]:
+            img, hw = load_image(path, input_size)
+            images.append(bgr_hwc_to_rgb(letterbox(img, input_size)[0]))
+            sizes.append(hw)
+        res = predict_step(model, torch.from_numpy(np.stack(images)).to(device),
+                           compute_dtype=torch.float32)
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        for b, (oh, ow) in enumerate(sizes):
+            (gx, gy), (pw, ph) = eval_geometry((oh, ow), input_size)
+            rows = []
+            for x1, y1, x2, y2, cls in zip(*res["boxes"][b].T, res["classes"][b]):
+                # to original-image pixels, normalized
+                x1, x2 = (x1 - pw) / gx / ow, (x2 - pw) / gx / ow
+                y1, y2 = (y1 - ph) / gy / oh, (y2 - ph) / gy / oh
+                if len(rows) == per_image or cls < 0:
+                    break
+                if not (0 <= x1 < x2 <= 1 and 0 <= y1 < y2 <= 1):
+                    continue
+                if len(rows) % 3 == 1:
+                    x1, x2 = x1 + (x2 - x1) / 4, min(x2 + (x2 - x1) / 4, 1.0)
+                elif len(rows) % 3 == 2:
+                    cls = (cls + 1) % nc
+                rows.append(f"{cls} {(x1 + x2) / 2:.6f} {(y1 + y2) / 2:.6f} "
+                            f"{x2 - x1:.6f} {y2 - y1:.6f}\n")
+            stem = os.path.splitext(os.path.basename(files[lo + b]))[0]
+            with open(os.path.join(root, "labels", "val2017", stem + ".txt"), "w") as f:
+                f.writelines(rows)

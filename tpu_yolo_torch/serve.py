@@ -34,6 +34,20 @@ def _device(device) -> torch.device:
     return device
 
 
+def fetch_async(res: dict):
+    """Start copying a dict of result tensors to the host; returns
+    (tensors, event). On the card each tensor is copied asynchronously
+    into pinned memory and the event marks the copies' end; CPU tensors
+    come back as they are, with no event."""
+    if next(iter(res.values())).device.type != "cuda":
+        return res, None
+    host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            .copy_(v, non_blocking=True) for k, v in res.items()}
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 class Detector:
     """Batched streaming detector.
 
@@ -80,17 +94,10 @@ class Detector:
                         **kw):
         """Load a tpu_yolo .ckpt (EMA weights when present) or an
         Ultralytics / reference .pt / .npz state dict."""
-        from tpu_yolo_torch.io.checkpoint import load_checkpoint
-        from tpu_yolo_torch.io.weights import from_jax_params, load_checkpoint_params
+        from tpu_yolo_torch.io.weights import load_params
 
         cfg = get_model_config(size, num_classes)
-        if path.endswith(".ckpt"):
-            payload = load_checkpoint(path)
-            state = from_jax_params(payload.get("ema_params") or payload["params"],
-                                    cfg)
-        else:
-            state = load_checkpoint_params(path, cfg)
-        return cls(YOLO.from_state_dict(cfg, state), **kw)
+        return cls(YOLO.from_state_dict(cfg, load_params(path, cfg)), **kw)
 
     # -- host decode ------------------------------------------------------
     def _decode_batch(self, paths: list[str], out: np.ndarray):
@@ -191,17 +198,7 @@ class Detector:
         if pending is not None:
             yield from self._emit(*pending, rescale)
 
-    def _fetch(self, res):
-        """Start copying a result to the host; returns (tensors, event).
-        On the card the copy is asynchronous into pinned memory, and the
-        event marks its end."""
-        if self.device.type != "cuda":
-            return res, None
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                .copy_(v, non_blocking=True) for k, v in res.items()}
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+    _fetch = staticmethod(fetch_async)
 
     def _emit(self, fetched, metas, chunk, rescale):
         res, done = fetched

@@ -14,8 +14,9 @@ Kept from the JAX package, which keeps them from the reference:
     mAP@50, mAP};
   * best/last checkpoints in the JAX package's layout (either package
     resumes from the other's file) + strip at the end.
-The per-epoch evaluation is not ported yet: without a val2017.txt the
-metrics are zeros, as in the JAX package; with one, `train` raises.
+  * per-epoch eval of the EMA weights, BN-folded, on val2017
+    (eval/evaluator.py; zeros without a val2017.txt); best.ckpt follows
+    its mAP.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 
 from tpu_yolo_torch.core.config import ModelConfig
-from tpu_yolo_torch.data.dataset import DetectionDataset
-from tpu_yolo_torch.data.loader import DataLoader
+from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+from tpu_yolo_torch.data.loader import DataLoader, make_val_loader
+from tpu_yolo_torch.eval.evaluator import evaluate
 from tpu_yolo_torch.io import checkpoint as ckpt_io
 from tpu_yolo_torch.io.weights import (from_jax_params, load_checkpoint_params,
                                        train_state_from_jax, train_state_to_jax)
@@ -116,13 +118,9 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
         state = init_train_state(model, ema=True, accumulate=accumulate)
 
     # --- data ----------------------------------------------------------
-    with open(os.path.join(args.data_dir, "train2017.txt")) as f:
-        filenames = [
-            os.path.join(args.data_dir, "images", "train2017",
-                         os.path.basename(line.strip()))
-            for line in f if line.strip()]
     dataset = DetectionDataset(
-        filenames, args.input_size, hyp, augment=True,
+        split_files(args.data_dir, "train2017"), args.input_size, hyp,
+        augment=True,
         cache_path=os.path.join(args.data_dir, "train2017.cache.npy"))
     loader = DataLoader(dataset, batch, shuffle=True,
                         num_workers=args.workers, drop_last=True)
@@ -245,7 +243,8 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
                       f"(raise the bucket if persistent)")
 
             # --- per-epoch eval + checkpoint ---------------------------
-            m_ap, m_ap50, recall, precision = _run_eval(args)
+            m_ap, m_ap50, recall, precision = _run_eval(
+                args, hyp, cfg, state, device)
             logger.writerow({
                 "epoch": str(epoch + 1).zfill(3),
                 "box": f"{meters['box'].avg:.3f}",
@@ -283,14 +282,19 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
     return state
 
 
-def _run_eval(args):
-    """(mAP, mAP@50, recall, precision) of the EMA weights on val2017.
-    Zeros when the data directory has no val2017.txt, as in the JAX
-    package; the evaluator itself belongs to the eval slice of the port."""
+def _run_eval(args, hyp, cfg, state, device):
+    """(mAP, mAP@50, recall, precision) of the EMA weights, BN-folded, on
+    val2017 at --val-batch-size; zeros when the data directory has no
+    val2017.txt, as in the JAX package."""
     if not os.path.exists(os.path.join(args.data_dir, "val2017.txt")):
         return 0.0, 0.0, 0.0, 0.0
-    raise NotImplementedError(
-        "per-epoch evaluation is not ported yet (the eval slice: "
-        "eval/evaluator.py and eval/metrics.py); train without a "
-        "val2017.txt in --data-dir, or evaluate the checkpoints with "
-        "tpu_yolo's `main.py --test`")
+    dataset = DetectionDataset(
+        split_files(args.data_dir, "val2017"), args.input_size, hyp,
+        augment=False,
+        cache_path=os.path.join(args.data_dir, "val2017.cache.npy"))
+    loader = make_val_loader(dataset, args.val_batch_size,
+                             num_workers=args.workers,
+                             native=getattr(args, "native_eval", "auto"))
+    return evaluate(YOLO.from_state_dict(cfg, state.ema), loader,
+                    args.input_size, progress=True,
+                    max_nms=getattr(args, "max_nms", 2048), device=device)
