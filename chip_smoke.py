@@ -12,8 +12,14 @@ images, then timed `train_step`s) and checks an f32 training step's
 losses and gradients against the CPU, then evaluates a checkpoint of the
 serving weights through the `--test` entry point (`cli.main.run_test`,
 val batch 32, bf16) on a seeded val split and checks an f32 eval of 8 of
-its images against the CPU. Each phase prints one JSON line; the line
-before the last lists the kernels
+its images against the CPU. Then the device image geometry: the device
+letterbox and the seven augmentation programs, card against CPU and
+timed (phases k, l); `Detector(device_letterbox=True).stream` at batch
+128 beside the host-letterbox stream, an f32 check of the staged path
+and one run of `python -m tpu_yolo_torch.detect --device-letterbox`
+(phase m); the trainer with `--device-augment`, mosaic and plain, beside
+the host-loader trainer on the same files (phase n). Each phase prints
+one JSON line; the line before the last lists the kernels
 with their launches on the main path, errors, times and bounds (`ms` and
 `library_ms` from launches replayed out of a CUDA graph, so that the
 host's launch time stays out; `ms_with_launch` from eager calls), and the
@@ -46,7 +52,8 @@ TRAIN_IMAGES = 128   # images of the seeded mini-COCO: two steps an epoch
 SIZE = 640           # input pixels
 TOP_K = 10           # the assigner's k
 HBM_BYTES_S = 3.35e12                       # H100 SXM memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, per type
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,    # dense, per type
+              "tfloat32": 495e12}
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}        # atol and rtol
 IOU_FLOPS_PER_PAIR = 14   # f32 operations of one masked IoU test
 # attention checks (dtype, BH, T): the serving shape and T=333 (not a multiple of 8)
@@ -68,6 +75,15 @@ NMS_EVAL_CASES = (("clustered", 32, 2048), ("uniform", 32, 2048))
 EVAL_IMAGES = 256    # the seeded val split of phase (j)
 EVAL_BATCH = 32      # --val-batch-size
 EVAL_F32_IMAGES = 8  # its first images, evaluated in f32 on the card and the CPU
+STAGE = 960          # Detector's stage_size: the staged serving buffer
+# phase k: staged images of mixed aspect ratios: 1080x1920 is pre-shrunk
+# to fit the stage, 300x200 and 123x777 are upscaled
+LETTERBOX_SIZES = ((480, 640), (640, 480), (1080, 1920), (300, 200), (960, 960),
+                   (123, 777))
+AUG_CHECK_BATCH = 4  # phase l: programs card vs CPU at this batch
+STAGED_FILES = 128   # phase m: JPEGs of 480x640, 640x480 and 1080x1920 in turn
+DA_IMAGES = 256      # phase n: the seeded mini-COCO, 4 steps an epoch
+PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
 
 
 def emit(phase: str, **fields):
@@ -390,6 +406,16 @@ def main() -> int:
     # (j) the eval path: --test's run_test on a seeded val split, counted,
     # then an f32 eval of its first images on the card against the CPU
     _eval_phase(cfg, smi, state, captured, launches)
+
+    # (k, l) the device letterbox and augmentation programs, card vs CPU
+    _letterbox_phase(dev, smi)
+    _augment_phase(dev, smi)
+
+    # (m) staged serving: Detector(device_letterbox=True) and detect
+    _serve_staged_phase(cfg, smi, state, launches)
+
+    # (n) the trainer with --device-augment beside the host loader
+    _train_device_augment_phase(cfg, smi, launches)
 
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
@@ -760,6 +786,403 @@ def _eval_phase(cfg, smi, state, captured, launches):
     check(tuple_err <= 1e-4, f"f32 eval tuples: card {f32['cuda']}, cpu {f32['cpu']}")
 
 
+def _pixel_agreement(got, want) -> dict:
+    """Share of equal uint8 values and mean |diff| of two image tensors."""
+    diff = (got.cpu().int() - want.cpu().int()).abs().float()
+    return dict(equal_share=float((diff == 0).float().mean()),
+                mean_abs_diff=float(diff.mean()), max_abs_diff=float(diff.max()))
+
+
+def _pixels_ok(agree: dict) -> bool:
+    return agree["equal_share"] >= 0.999 and agree["mean_abs_diff"] < 0.01
+
+
+def _smooth_image(rng, h: int, w: int) -> np.ndarray:
+    """A seeded (h, w, 3) uint8 image with photo-like local correlation."""
+    import cv2
+
+    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3), np.uint8)
+    return cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC)
+
+
+def _peak_gb(fn) -> float:
+    """GB the card allocates beyond what is live, over one call of fn()."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _letterbox_phase(dev, smi):
+    """Phase (k): the device letterbox, card against CPU and against cv2
+    on staged images of mixed aspect ratios, then timed at (128, 960 ->
+    640) beside the bytes and operations of its two products."""
+    import cv2
+    import torch
+
+    from tpu_yolo_torch.data.native_loader import fb_raw
+    from tpu_yolo_torch.ops.letterbox import letterbox_batch
+
+    rng = np.random.default_rng(SEED + 5)
+    n = len(LETTERBOX_SIZES)
+    staged = np.zeros((n, STAGE, STAGE, 3), np.uint8)
+    dims = np.zeros((n, 4), np.float32)
+    for i, (h, w) in enumerate(LETTERBOX_SIZES):
+        fb_raw(STAGE)(_smooth_image(rng, h, w), staged[i], dims[i])
+    hw = torch.from_numpy(np.maximum(dims[:, :2], 1.0))
+    card, card_meta = letterbox_batch(torch.from_numpy(staged).to(dev), hw.to(dev),
+                                      out_size=SIZE)
+    cpu, cpu_meta = letterbox_batch(torch.from_numpy(staged), hw, out_size=SIZE)
+    agree = _pixel_agreement(card, cpu)
+    meta_err = float((card_meta.cpu() - cpu_meta).abs().max())
+    oracle = []
+    for i in range(n):
+        sh, sw = int(dims[i, 0]), int(dims[i, 1])
+        r = min(SIZE / sh, SIZE / sw)
+        nw, nh = int(round(sw * r)), int(round(sh * r))
+        ref = cv2.resize(staged[i, :sh, :sw], (nw, nh), interpolation=cv2.INTER_LINEAR)
+        top, left = int(round((SIZE - nh) / 2 - 0.1)), int(round((SIZE - nw) / 2 - 0.1))
+        diff = np.abs(card[i, top:top + nh, left:left + nw].cpu().numpy().astype(np.int16)
+                      - ref.astype(np.int16))
+        oracle.append(dict(original=list(LETTERBOX_SIZES[i]), staged=[sh, sw],
+                           mean=float(diff.mean()), q99=float(np.quantile(diff, 0.99))))
+    check(_pixels_ok(agree) and meta_err <= 1e-6,
+          f"letterbox card vs CPU: {agree}, metas {meta_err}")
+    check(all(o["mean"] < 1.5 and o["q99"] <= 6 for o in oracle),
+          f"letterbox card vs cv2: {oracle}")
+
+    # timed at the staged serving batch: sizes drawn per image
+    b, s, st = BATCH, SIZE, STAGE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randint(0, 256, (b, st, st, 3), dtype=torch.uint8, device=dev, generator=gen)
+    hw_big = torch.from_numpy(rng.integers(200, st + 1, (b, 2)).astype(np.float32)).to(dev)
+    ms = cuda_ms(lambda: letterbox_batch(x, hw_big, out_size=s), iters=5, warmup=2)
+    peak = _peak_gb(lambda: letterbox_batch(x, hw_big, out_size=s))
+    flops = 2 * b * s * st * st * 3 + 2 * b * 3 * s * st * s
+    product_bytes = 4 * (b * s * st + b * st * st * 3 + b * s * st * 3      # R_y, x, y
+                         + b * 3 * s * st + b * s * st + b * 3 * s * s)    # y, R_x, out
+    bound, bound_by = _bound(b * st * st * 3 + b * s * s * 3 + b * 8, flops,
+                             PEAK_FLOPS["tfloat32"])
+    emit("letterbox_check", nvidia_smi=smi, images=n, stage=STAGE, size=SIZE,
+         card_vs_cpu=agree, metas_max_abs_err=meta_err, card_vs_cv2=oracle,
+         threshold=f"card vs CPU: {PIXEL_GATE}, metas within 1e-6; card vs cv2: "
+                   f"mean < 1.5, q99 <= 6",
+         timed=dict(batch=b, shape=[b, st, st, 3], ms=ms,
+                    products_tflop=flops / 1e12, products_f32_bytes_gb=product_bytes / 1e9,
+                    tap_matrix_mb=b * s * st * 4 / 1e6, bound_ms=bound, bound_by=bound_by,
+                    peak_memory_gb=peak))
+
+
+def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
+    """Host draws for `b` samples of one mode over sources of the given
+    staged dims: (source indices, hw rows, stacked params)."""
+    import random
+
+    from tpu_yolo_torch.data import device_augment as da
+
+    n = len(dims)
+    rng, np_rng = random.Random(seed), np.random.default_rng(seed)
+    no_labels = np.zeros((0, 5), np.float32)
+    outs, idx = [], []
+    for k in range(b):
+        if mode == "mosaic":
+            d = da.draw_mosaic(rng, np_rng, k % n, n, hyp, SIZE)
+            outs.append(da.assemble_mosaic(d, lambda i: dims[i], lambda i: no_labels,
+                                           SIZE, general=general))
+            idx.append(d["indices"])
+        elif mode == "mixup":
+            d1, d2, alpha = da.draw_mixup_pair(rng, np_rng, k % n, n, hyp, SIZE)
+            outs.append(da.assemble_mixup(d1, d2, alpha, lambda i: dims[i],
+                                          lambda i: no_labels, SIZE, general=general))
+            idx.append([d1["indices"], d2["indices"]])
+        else:
+            d = da.draw_plain(rng, np_rng, hyp, SIZE)
+            outs.append(da.assemble_plain(d, dims[k % n], no_labels, SIZE,
+                                          general=general))
+            idx.append(k % n)
+    params = da.DeviceAugmentLoader._stack_params([o[0] for o in outs])
+    hw = np.asarray([dims[k % n] for k in range(b)], np.float32)
+    return np.asarray(idx), hw, params
+
+
+def _tensors(tree, device):
+    import torch
+
+    return {k: (_tensors(v, device) if isinstance(v, dict)
+                else torch.as_tensor(np.asarray(v)).to(device)) for k, v in tree.items()}
+
+
+def _augment_phase(dev, smi):
+    """Phase (l): the seven augmentation programs and the HSV jitter,
+    card against CPU at B=4, St=S=640; then augment_batch,
+    mixup_augment_batch and plain_augment_batch timed at B=64 with their
+    peak memory."""
+    import torch
+
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.ops import augment_device as ad
+
+    hyp = load_hyperparams()
+    general_hyp = dict(hyp, degrees=10.0, shear=4.0)
+    rng = np.random.default_rng(SEED + 6)
+    # staged dims of the scaled contract (long side == SIZE)
+    dims = [(h * SIZE // 640, w * SIZE // 640) for h, w in
+            ((640, 480), (360, 640), (640, 640), (300, 640), (640, 213), (512, 640))]
+    sources = np.zeros((len(dims), SIZE, SIZE, 3), np.uint8)
+    for i, (h, w) in enumerate(dims):
+        sources[i, :h, :w] = _smooth_image(rng, h, w)
+    rows = []
+    for name, mode, general in (
+            ("augment_batch", "mosaic", False), ("mixup_augment_batch", "mixup", False),
+            ("plain_augment_batch", "plain", False),
+            ("augment_batch_general", "mosaic", True),
+            ("mixup_augment_batch_general", "mixup", True),
+            ("plain_augment_batch_general", "plain", True)):
+        idx, hw, params = _augment_params(mode, AUG_CHECK_BATCH,
+                                          general_hyp if general else hyp, dims,
+                                          SEED + len(rows), general)
+        srcs = torch.from_numpy(sources[idx])
+        extra = (torch.from_numpy(hw),) if mode == "plain" else ()
+        outs = [getattr(ad, name)(srcs.to(d), *(t.to(d) for t in extra),
+                                  _tensors(params, d), out_size=SIZE)
+                for d in (dev, torch.device("cpu"))]
+        rows.append(dict(program=name, **_pixel_agreement(*outs)))
+    img = torch.from_numpy(sources[:2].astype(np.float32))
+    gains = torch.tensor([[1.01, 0.8, 1.2], [0.99, 1.3, 0.7]])
+    hsv = [ad.hsv_jitter_device(img.to(d), gains.to(d)).clamp(0, 255).to(torch.uint8)
+           for d in (dev, torch.device("cpu"))]
+    rows.append(dict(program="hsv_jitter_device", **_pixel_agreement(*hsv)))
+    for row in rows:
+        check(_pixels_ok(row), f"augmentation program card vs CPU: {row}")
+
+    # timed at the training batch, on seeded sources staged on the card
+    b, s = TRAIN_BATCH, SIZE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    timed = []
+    for name, mode in (("augment_batch", "mosaic"), ("mixup_augment_batch", "mixup"),
+                       ("plain_augment_batch", "plain")):
+        _, hw, params = _augment_params(mode, b, hyp, dims, SEED)
+        shape = {"mosaic": (b, 4), "mixup": (b, 2, 4), "plain": (b,)}[mode]
+        srcs = torch.randint(0, 256, (*shape, s, s, 3), dtype=torch.uint8, device=dev,
+                             generator=gen)
+        extra = (torch.from_numpy(hw).to(dev),) if mode == "plain" else ()
+        p = _tensors(params, dev)
+
+        def run(name=name, srcs=srcs, extra=extra, p=p):
+            return getattr(ad, name)(srcs, *extra, p, out_size=s)
+
+        resamples = {"mosaic": 4, "mixup": 8, "plain": 2}[mode]   # per image
+        flops = resamples * b * (2 * s * s * s * 3 + 2 * 3 * s * s * s)
+        timed.append(dict(program=name, batch=b, source_shape=list(srcs.shape),
+                          ms=cuda_ms(run, iters=3, warmup=1), peak_memory_gb=_peak_gb(run),
+                          products_tflop=flops / 1e12))
+    emit("augment_check", nvidia_smi=smi, size=SIZE, check_batch=AUG_CHECK_BATCH,
+         card_vs_cpu=rows, threshold=f"card vs CPU: {PIXEL_GATE}", timed=timed)
+
+
+def _write_jpegs(root: str, n: int) -> list[str]:
+    """n seeded JPEGs of 480x640, 640x480 and 1080x1920 in turn."""
+    import cv2
+
+    rng = np.random.default_rng(SEED + 7)
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(n):
+        h, w = ((480, 640), (640, 480), (1080, 1920))[i % 3]
+        paths.append(os.path.join(root, f"im{i:04d}.jpg"))
+        cv2.imwrite(paths[-1], _smooth_image(rng, h, w))
+    return paths
+
+
+def _serve_staged_phase(cfg, smi, state, launches):
+    """Phase (m): Detector(device_letterbox=True).stream at batch 128,
+    bf16, K=1024 beside the host-letterbox stream on the same JPEGs, both
+    kernels counted on the staged path; an f32 check of 2 images through
+    the staged path, card against CPU; one run of
+    `python -m tpu_yolo_torch.detect --device-letterbox`."""
+    import torch
+
+    from tpu_yolo_torch.io.checkpoint import save_checkpoint
+    from tpu_yolo_torch.io.weights import to_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+    from tpu_yolo_torch.serve import Detector
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = _write_jpegs(os.path.join(tmp, "jpegs"), STAGED_FILES)
+        write_s = time.perf_counter() - t0
+        staged = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE,
+                          device="cuda", device_letterbox=True, stage_size=STAGE)
+        host = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+        for det in (staged, host):            # warm both paths
+            list(det.stream(files, batch_size=BATCH))
+
+        def timed(det):
+            t0 = time.perf_counter()
+            out = list(det.stream(files * 2, batch_size=BATCH))
+            return len(out) / (time.perf_counter() - t0), out
+
+        attention_cuda.fused_attention.launches = 0
+        nms_cuda.greedy_keep.launches = 0
+        rate, out = timed(staged)
+        launches["staged_attention"] = attention_cuda.fused_attention.launches
+        launches["staged_nms"] = nms_cuda.greedy_keep.launches
+        batches = 2 * STAGED_FILES // BATCH
+        check(launches["staged_nms"] == batches and launches["staged_attention"] >= batches,
+              f"kernel launches on the staged path: {launches}, {batches} batches")
+        counts = [len(r["boxes"]) for r in out]
+        check(all("error" not in r for r in out) and np.mean([c > 0 for c in counts]) >= 0.9,
+              f"staged serving results: {counts}")
+        rates = {"staged": [rate], "host_letterbox": []}
+        for det, key in ((host, "host_letterbox"), (staged, "staged"),
+                         (host, "host_letterbox")):
+            rates[key].append(timed(det)[0])
+        # the host's decode alone, into the same kind of buffer, per path
+        decode = {}
+        for key, size, run in (
+                ("staged_raw", STAGE, staged._decode_batch_raw),
+                ("host_letterbox", SIZE, host._decode_batch)):
+            buf = np.zeros((BATCH, size, size, 3), np.uint8)
+            t0 = time.perf_counter()
+            for lo in range(0, STAGED_FILES, BATCH):
+                run(files[lo:lo + BATCH], buf[:len(files[lo:lo + BATCH])])
+            decode[key] = STAGED_FILES / (time.perf_counter() - t0)
+        # the H2D copy of one pinned batch per path
+        h2d_ms = {}
+        for key, size in (("staged_raw", STAGE), ("host_letterbox", SIZE)):
+            buf = torch.zeros((BATCH, size, size, 3), dtype=torch.uint8, pin_memory=True)
+            h2d_ms[key] = cuda_ms(lambda buf=buf: buf.to("cuda", non_blocking=True),
+                                  iters=5)
+
+        # f32 on the card (TF32 off) against the CPU, through the staged path
+        two = [files[0], files[2]]
+        kw = dict(input_size=SIZE, compute_dtype=torch.float32, ranking="exact",
+                  device_letterbox=True, stage_size=STAGE)
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            card = list(Detector(YOLO.from_state_dict(cfg, state), device="cuda", **kw)
+                        .stream(two, batch_size=2, rescale=False))
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        cpu = list(Detector(YOLO.from_state_dict(cfg, state), device="cpu", **kw)
+                   .stream(two, batch_size=2, rescale=False))
+        f32_rows = [_agreement(_one(a), _one(b)) for a, b in zip(card, cpu)]
+        for agree in f32_rows:
+            check(min(agree["match"]) >= 0.98 and agree["max_box_err_px"] <= 0.05
+                  and agree["max_score_err"] <= 5e-4, f"f32 staged agreement: {agree}")
+
+        # the detect entry point on a few files, in its own process
+        ckpt = os.path.join(tmp, "serving.ckpt")
+        save_checkpoint(ckpt, {"params": to_jax_params(state)})
+        out_dir = os.path.join(tmp, "annotated")
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_yolo_torch.detect", "--device-letterbox",
+             "--weights", ckpt, "--out", out_dir, *files[:3]],
+            capture_output=True, text=True, timeout=600)
+        detect_lines = proc.stdout.strip().splitlines()
+        check(proc.returncode == 0 and len(os.listdir(out_dir)) == 3,
+              f"detect --device-letterbox: rc {proc.returncode}, {proc.stderr[-2000:]}")
+    emit("serve_staged", nvidia_smi=smi, model="v11-n", size=SIZE, batch=BATCH,
+         stage=STAGE, dtype="bfloat16", max_nms=1024, files=STAGED_FILES,
+         images_per_pass=2 * STAGED_FILES, write_jpegs_seconds=write_s,
+         stager=staged.stager, launches_per_pass=dict(
+             attention=launches["staged_attention"], nms=launches["staged_nms"]),
+         img_per_s=rates, decode_alone_img_per_s=decode, h2d_ms_per_batch=h2d_ms,
+         count_mean=float(np.mean(counts)),
+         f32_card_vs_cpu=f32_rows, detect=detect_lines[-2:],
+         threshold="f32 staged, card vs CPU: per image and both ways, >= 98% of "
+                   "detections matched, boxes within 0.05 px, scores within 5e-4")
+
+
+def _train_device_augment_phase(cfg, smi, launches):
+    """Phase (n): trainer.train on a seeded mini-COCO, v11-n, 640 px,
+    batch 64, bf16, 2 epochs each: the host loader, --device-augment
+    (mosaic), --device-augment with mosaic=0 (the plain program); the
+    top-k kernel counted in each; then the loaders alone."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+    from tpu_yolo_torch.data.device_augment import DeviceAugmentLoader
+    from tpu_yolo_torch.data.loader import DataLoader
+    from tpu_yolo_torch.ops import topk_cuda
+    from tpu_yolo_torch.seeded import write_mini_coco
+    from tpu_yolo_torch.train import trainer
+
+    epochs, steps = 2, DA_IMAGES // TRAIN_BATCH
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data_dir = write_mini_coco(os.path.join(tmp, "coco"), DA_IMAGES, hw=(480, 640),
+                                   seed=SEED + 1)
+        write_s = time.perf_counter() - t0
+        for name, device_augment, mosaic in (("host_loader", False, 1.0),
+                                             ("device_mosaic", True, 1.0),
+                                             ("device_plain", True, 0.0)):
+            hyp = dict(load_hyperparams(), mosaic=mosaic)
+            args = argparse.Namespace(
+                model_size="n", input_size=SIZE, batch_size=TRAIN_BATCH, epochs=epochs,
+                data_dir=data_dir, save_dir=os.path.join(tmp, name), resume="",
+                weights="", workers=8, gt_bucket=0, remat=False, remat_level="stage",
+                tensorboard=False, val_batch_size=EVAL_BATCH, native_eval="auto",
+                max_nms=2048, device_augment=device_augment, seed=SEED)
+            out = io.StringIO()
+            topk_cuda.topk_mask.launches = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with contextlib.redirect_stdout(out):
+                state = trainer.train(args, hyp, cfg, device="cuda")
+            torch.cuda.synchronize()
+            topk = topk_cuda.topk_mask.launches
+            lines = out.getvalue().strip().splitlines()
+            print("\n".join(lines), flush=True)
+            epoch_rates = [float(m.group(1)) for m in
+                           (re.search(r"s, ([\d.]+) img/s\)", ln) for ln in lines) if m]
+            check(state.step == epochs * steps and topk == epochs * steps
+                  and len(epoch_rates) == epochs,
+                  f"{name}: {state.step} steps, {topk} top-k launches, {lines}")
+            stager = [ln for ln in lines if ln.startswith("[train] device augment")]
+            runs[name] = dict(epoch_img_per_s=epoch_rates, topk_launches=topk,
+                              peak_memory_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                              stager=stager[0] if stager else None,
+                              last_epoch=[ln for ln in lines if ln.startswith("epoch ")][-1])
+            del state
+        launches["augment_topk"] = runs["device_mosaic"]["topk_launches"]
+
+        # the loaders alone: one epoch each, nothing on the device
+        files = split_files(data_dir, "train2017")
+        cache = os.path.join(data_dir, "train2017.cache.npy")
+        loaders = {}
+        for name, mosaic in (("device_mosaic", 1.0), ("device_plain", 0.0)):
+            loaders[name] = DeviceAugmentLoader(
+                files, SIZE, dict(load_hyperparams(), mosaic=mosaic), TRAIN_BATCH,
+                cache_path=cache, threads=8, seed=SEED, pin_memory=True)
+        loaders["host_loader"] = DataLoader(
+            DetectionDataset(files, SIZE, load_hyperparams(), augment=True,
+                             cache_path=cache), TRAIN_BATCH, shuffle=True,
+            num_workers=8, drop_last=True)
+        loader_rates = {}
+        for name, loader in loaders.items():
+            t0 = time.perf_counter()
+            n = TRAIN_BATCH * sum(1 for _ in loader)
+            loader_rates[name] = n / (time.perf_counter() - t0)
+    emit("train_device_augment", nvidia_smi=smi, model="v11-n", size=SIZE,
+         batch=TRAIN_BATCH, dtype="bfloat16", images=DA_IMAGES, epochs=epochs,
+         write_images_seconds=write_s, runs=runs, loader_alone_img_per_s=loader_rates,
+         stager=loaders["device_mosaic"].stager)
+
+
 def _kernel_rows(captured, launches):
     import torch
 
@@ -778,6 +1201,7 @@ def _kernel_rows(captured, launches):
         source="tpu_yolo_torch/csrc/attention.cu",
         replaces="tpu_yolo/ops/attention_pallas.py:66",
         launches=launches["attention"], max_abs_err=attn_err,
+        staged_serving_launches=launches["staged_attention"],
         **_attention_times(q, k, v, scale))]
 
     # at eval's inputs (val batch 32: K/V streamed), counted in run_test
@@ -801,7 +1225,8 @@ def _kernel_rows(captured, launches):
         name="nms_greedy_keep", route="cuda",
         source="tpu_yolo_torch/csrc/nms_keep.cu",
         replaces="tpu_yolo/ops/nms_pallas.py:145",
-        launches=launches["nms"], **_keep_times(*captured["nms"]),
+        launches=launches["nms"], staged_serving_launches=launches["staged_nms"],
+        **_keep_times(*captured["nms"]),
         eval_shape=dict(launches=launches["eval_nms"],
                         **_keep_times(*captured["eval_nms"]))))
 
@@ -822,7 +1247,7 @@ def _kernel_rows(captured, launches):
         replaces="tpu_yolo/ops/topk_pallas.py:78",
         shape=dict(b=x.shape[0], n=x.shape[1], a=x.shape[2], k=TOP_K,
                    nonzero=int((x > 0).sum()), selected=int(got.sum())),
-        launches=launches["topk"],
+        launches=launches["topk"], device_augment_launches=launches["augment_topk"],
         max_abs_err=float((got.int() - want.int()).abs().max()),
         ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K), graph=True),
         ms_with_launch=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),

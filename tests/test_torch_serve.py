@@ -1,6 +1,9 @@
 """The port's Detector against the JAX package's, on the CPU in f32:
-batch results, single-image and streaming paths, the presets, the
-device rule and checkpoint loading."""
+batch results, single-image and streaming paths, the staged path with the
+device letterbox, the presets, the device rule, checkpoint loading and
+the `detect` entry point."""
+import os
+import pathlib
 import pickle
 
 import numpy as np
@@ -14,11 +17,13 @@ from tpu_yolo.io.weights import save_torch_checkpoint
 from tpu_yolo.models import yolov11 as jax_yolo
 from tpu_yolo.serve import Detector as JaxDetector
 from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.io.weights import from_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.serve import Detector
 
 torch.set_num_threads(1)
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 SIZE = 128
 
 
@@ -172,3 +177,109 @@ def test_from_checkpoint_pt(tmp_path):
     want = _model(_params(5)).fold_batchnorm().state_dict()
     for k, v in det.model.state_dict().items():
         assert torch.equal(v, want[k]), k
+
+
+# -- the staged path: device letterbox ----------------------------------------
+
+STAGE = 160
+
+
+@pytest.fixture(scope="module")
+def staged_jpegs(tmp_path_factory):
+    """JPEGs of mixed aspect ratios; the first is longer than STAGE, so
+    the host pre-shrinks it and its axes get different ratios."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("torch_serve_staged")
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, (h, w) in enumerate([(150, 333), (120, 90), (64, 100)]):
+        img = cv2.GaussianBlur(rng.integers(0, 255, (h, w, 3), np.uint8), (5, 5), 2)
+        paths.append(str(root / f"staged{i}.jpg"))
+        cv2.imwrite(paths[-1], img)
+    return paths
+
+
+def test_metas_from_dims_match_jax():
+    dims = np.array([[160, 72, 333, 150], [120, 90, 120, 90], [-1, 0, 0, 0],
+                     [64, 100, 64, 100], [159, 160, 1000, 1003]], np.float32)
+    for size in (128, 640):
+        want = JaxDetector._metas_from_dims(dims, size)
+        got = Detector._metas_from_dims(dims, size)
+        np.testing.assert_array_equal(got, want)
+    assert got[0, 0] != got[0, 5]
+
+
+def test_staged_stream_matches_jax_detector(staged_jpegs):
+    """Detector(device_letterbox=True).stream against tpu_yolo's staged
+    Detector on the same JPEGs and weights, f32, exact ranking; batch 2
+    over 3 images, so the last batch is padded."""
+    params = _params()
+    ref_det = JaxDetector(jax_yolo.fold_batchnorm(params), jax_config("n"),
+                          input_size=SIZE, compute_dtype=jnp.float32,
+                          ranking="exact", device_letterbox=True, stage_size=STAGE)
+    det = Detector(_model(params), input_size=SIZE, device="cpu",
+                   compute_dtype=torch.float32, ranking="exact",
+                   device_letterbox=True, stage_size=STAGE)
+    ref = list(ref_det.stream(staged_jpegs, batch_size=2))
+    mine = list(det.stream(staged_jpegs, batch_size=2))
+    assert det.stager == ("native" if native_loader.available() else "cv2")
+    assert [r["path"] for r in mine] == staged_jpegs
+    assert sum(len(r["boxes"]) for r in mine) > 0
+    for a, b in zip(mine, ref):
+        assert len(a["boxes"]) == len(b["boxes"]), a["path"]
+        np.testing.assert_array_equal(a["classes"], b["classes"])
+        np.testing.assert_allclose(a["boxes"], b["boxes"], atol=1e-3)
+        np.testing.assert_allclose(a["scores"], b["scores"], atol=1e-4)
+
+
+def test_staged_stream_reports_failed_decodes(staged_jpegs, tmp_path):
+    bad = str(tmp_path / "bad.jpg")
+    with open(bad, "wb") as f:
+        f.write(b"not a jpeg")
+    det = Detector(_model(_params()), input_size=SIZE, device="cpu",
+                   compute_dtype=torch.float32, device_letterbox=True,
+                   stage_size=STAGE)
+    out = list(det.stream([staged_jpegs[1], bad], batch_size=4))
+    assert out[1]["error"] == "decode" and len(out[1]["boxes"]) == 0
+    assert "error" not in out[0]
+
+
+@pytest.mark.parametrize("extra", [["--device-letterbox"], ["--latency-mode"]])
+def test_detect_entry_point_writes_annotated_files(staged_jpegs, tmp_path, extra):
+    """`python -m tpu_yolo_torch.detect --device cpu` over the JPEGs: one
+    annotated copy each, and a summary line."""
+    import subprocess
+    import sys
+
+    import cv2
+
+    weights = str(tmp_path / "w.ckpt")
+    with open(weights, "wb") as f:
+        pickle.dump({"params": _params()}, f)
+    out_dir = tmp_path / "annotated"
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_yolo_torch.detect", "--device", "cpu",
+         "--weights", weights, "--input-size", str(SIZE), "--batch-size", "2",
+         "--out", str(out_dir), *extra, *staged_jpegs],
+        capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert "done: " in proc.stdout and " over 3 images" in proc.stdout
+    for p in staged_jpegs:
+        img = cv2.imread(str(out_dir / os.path.basename(p)))
+        assert img is not None and img.shape == cv2.imread(p).shape
+    if extra == ["--device-letterbox"]:
+        assert "stager: " in proc.stdout
+
+
+def test_detect_raises_without_a_card_unless_cpu_is_asked(staged_jpegs, tmp_path,
+                                                          monkeypatch):
+    from tpu_yolo_torch import detect
+
+    weights = str(tmp_path / "w.ckpt")
+    with open(weights, "wb") as f:
+        pickle.dump({"params": _params()}, f)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert detect.parse_args(["--weights", weights, "x.jpg"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        detect.main(["--weights", weights, "--device-letterbox", *staged_jpegs])

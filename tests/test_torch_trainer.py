@@ -333,9 +333,106 @@ def test_cli_flags():
     args = cli.parse_args(["--test"])
     assert args.test and args.val_batch_size == 32 and args.max_nms == 2048
     assert args.native_eval == "auto" and not args.coco_metrics and not args.plot
-    for later in ("--export", "--native-train", "--device-augment",
-                  "--distributed", "--profile"):
+    assert not args.device_augment
+    assert cli.parse_args(["--train", "--device-augment"]).device_augment
+    for later in ("--export", "--native-train", "--distributed", "--profile"):
         with pytest.raises(SystemExit):
             cli.parse_args([later])
     with pytest.raises(SystemExit):
         cli.parse_args(["--gt-bucket", "-1"])
+
+
+# -- --device-augment ----------------------------------------------------------
+
+def _tap_programs(mp, calls):
+    """Record every call of the two default augmentation programs."""
+    from tpu_yolo_torch.ops import augment_device as AD
+
+    for name in ("augment_batch", "plain_augment_batch"):
+        def tap(*a, _real=getattr(AD, name), _name=name, **kw):
+            out = _real(*a, **kw)
+            calls.setdefault(_name, []).append((a, kw, out))
+            return out
+        mp.setattr(AD, name, tap)
+
+
+@pytest.fixture(scope="module")
+def device_augment_runs(tmp_path_factory, data_dir):
+    """--device-augment through the trainer on the CPU: two epochs with
+    mosaic, two with hyp["mosaic"] = 0 (the plain program)."""
+    runs = {}
+    for mosaic in (1.0, 0.0):
+        h = load_hyperparams()
+        h["names"] = {0: "red", 1: "blue"}
+        h["mosaic"] = mosaic
+        save_dir = tmp_path_factory.mktemp(f"device_augment_{mosaic}")
+        calls = {}
+        with pytest.MonkeyPatch.context() as mp:
+            _tap_programs(mp, calls)
+            state = train(_args(data_dir, save_dir, device_augment=True, seed=0),
+                          h, TINY, device="cpu")
+        runs[mosaic] = (save_dir, state, calls)
+    return runs
+
+
+def test_device_augment_trains_through_both_programs(device_augment_runs):
+    for mosaic, program in ((1.0, "augment_batch"), (0.0, "plain_augment_batch")):
+        save_dir, state, calls = device_augment_runs[mosaic]
+        assert set(calls) == {program} and len(calls[program]) == 4, mosaic
+        assert state.step == 4
+        for _, _, out in calls[program]:
+            assert out.shape == (4, 64, 64, 3) and out.dtype == torch.uint8
+        with open(save_dir / "step.csv") as f:
+            rows = list(csv.DictReader(f))
+        assert [r["epoch"] for r in rows] == ["001", "002"]
+        assert all(np.isfinite(float(r[k])) for r in rows for k in ("box", "cls", "dfl"))
+        payload = ckpt_io.load_checkpoint(str(save_dir / "last.ckpt"))
+        assert payload["epoch"] == 2 and "params" in payload
+
+
+def _jax_params(tree):
+    """Device parameters as the trainer ships them (f32, flips 0/1) ->
+    the JAX programs' dict (flips bool)."""
+    return {k: (_jax_params(v) if isinstance(v, dict)
+                else jnp.asarray(v.numpy() > 0.5) if k.startswith("flip")
+                else jnp.asarray(v.numpy())) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("mosaic", [1.0, 0.0])
+def test_device_augment_first_batch_matches_jax(device_augment_runs, mosaic):
+    """The trainer's first augmented batch equals JAX's program on the same
+    staged sources and parameters (uint8 equal on >= 99.9%, mean |diff|
+    under 0.01)."""
+    from tpu_yolo.ops import augment_device as jad
+
+    _, _, calls = device_augment_runs[mosaic]
+    name = "augment_batch" if mosaic else "plain_augment_batch"
+    args, kw, got = calls[name][0]
+    *inputs, params = args
+    want = np.asarray(getattr(jad, name)(*(jnp.asarray(t.numpy()) for t in inputs),
+                                         _jax_params(params), **kw))
+    diff = np.abs(got.numpy().astype(np.int16) - want.astype(np.int16))
+    assert (diff == 0).mean() >= 0.999 and diff.mean() < 0.01, (diff == 0).mean()
+
+
+def test_cli_trains_with_device_augment(data_dir, tmp_path, capsys):
+    """python -m tpu_yolo_torch.cli.main --train --device-augment on the
+    CPU, with mosaic at 0.5: both programs run, and the stager is named."""
+    import yaml
+
+    h = load_hyperparams()
+    h["names"] = {0: "red", 1: "blue"}
+    h["mosaic"] = 0.5
+    hyp_path = tmp_path / "hyp.yaml"
+    hyp_path.write_text(yaml.safe_dump(h))
+    calls = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _tap_programs(mp, calls)
+        cli.main(["--train", "--device-augment", "--device", "cpu",
+                  "--input-size", "64", "--batch-size", "4", "--epochs", "2",
+                  "--data-dir", data_dir, "--save-dir", str(tmp_path / "w"),
+                  "--hyp", str(hyp_path), "--workers", "2", "--seed", "1"])
+    assert set(calls) == {"augment_batch", "plain_augment_batch"}
+    assert sum(len(v) for v in calls.values()) == 4
+    assert "[train] device augment: stager " in capsys.readouterr().out
+    assert os.path.exists(tmp_path / "w" / "last.ckpt")

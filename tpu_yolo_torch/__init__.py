@@ -13,16 +13,19 @@ at their first launch:
 
 Package layout:
   core/    model configs and hyperparameters
-  ops/     conv/BN/pool/upsample, blocks, anchors, boxes, NMS, kernels
+  ops/     conv/BN/pool/upsample, blocks, anchors, boxes, NMS, kernels,
+           the device letterbox and augmentation programs
   models/  the YOLOv11 graph (n/t/s/m/l/x) as an nn.Module
   io/      JAX param trees and train states, torch/Ultralytics state
            dicts, .ckpt files (read and written)
   data/    image decode and letterbox, labels, augmentation, dataset,
-           loaders (the eval one also over the native C++ pipeline)
+           loaders (eval and staging also over the native C++ pipeline,
+           cv2 where it cannot be built), the device-augment loader
   train/   loss and assigner, optimizer and EMA, train step, trainer
   eval/    evaluator, TP matching and AP, the COCO protocol, plots
+  utils/   drawing detections
   cli/     `python -m tpu_yolo_torch.cli.main --train | --test`
-  serve.py the Detector
+  serve.py the Detector; detect.py `python -m tpu_yolo_torch.detect`
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,8 @@ evaluator, plus --device.
     python -m tpu_yolo_torch.cli.main --train --data-dir ./COCO --batch-size 64
     python -m tpu_yolo_torch.cli.main --test --data-dir ./COCO --weights best.ckpt
 
-Export, the profile banner, the native train and on-device loaders and
+--device-augment runs the mosaic/affine/HSV/flip augmentation on the
+device. Export, the profile banner, the native train loader and
 multi-process training or evaluation are not ported yet and their flags
 are not declared.
 """
@@ -59,6 +60,12 @@ def parse_args(argv=None):
                         ".so exists (auto, the default), required (on), "
                         "or the Python cv2 loader (off — the parity "
                         "oracle path; identical geometry either way)")
+
+    p.add_argument("--device-augment", action="store_true",
+                   help="run mosaic/affine/HSV/flip augmentation on the "
+                        "device (ops/augment_device.py); the host only "
+                        "decodes (native C++ pool, or cv2 where it cannot "
+                        "be built) and draws the parameters")
 
     def _nonneg(v):
         iv = int(v)

@@ -59,3 +59,26 @@ def load_hyperparams(path: str | None = None) -> dict:
 
     with open(path or _DEFAULT_HYP, errors="ignore") as f:
         return yaml.safe_load(f)
+
+
+class _LazyNames:
+    """The 80 COCO class names of hyp.yaml, read at first use."""
+
+    _cache = None
+
+    def _names(self):
+        if type(self)._cache is None:
+            type(self)._cache = load_hyperparams()["names"]
+        return type(self)._cache
+
+    def __getitem__(self, k):
+        return self._names()[k]
+
+    def __len__(self):
+        return len(self._names())
+
+    def items(self):
+        return self._names().items()
+
+
+COCO_NAMES = _LazyNames()

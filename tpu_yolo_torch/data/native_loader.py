@@ -1,17 +1,27 @@
-"""The eval part of the native C++ data path: the port's own ctypes
-binding to `native/libtpuyolo_data.so` (built by `make -C native` from
-`native/image_pipeline.cc`), counterpart of the eval half of
+"""The port's ctypes binding to the native C++ data path,
+`native/libtpuyolo_data.so` (built by `make -C native` from
+`native/image_pipeline.cc`): the eval and staging halves of
 `tpu_yolo/data/native_loader.py`.
 
-JPEG decode + bilinear resize + letterbox run in a GIL-free C++ thread
-pool, in the geometry of data/image.py's `load_image` +
-`letterbox(augment=False)`; batches come out as contiguous NHWC uint8
-RGB. A file libjpeg cannot read (PNG, BMP, ...) is decoded by cv2 with
-the same geometry, bit for bit.
+JPEG decode + resize run in a GIL-free C++ thread pool; batches come out
+as contiguous NHWC uint8 RGB:
+  * `load_batch_eval`: the eval geometry (data/image.py `load_image` +
+    `letterbox(augment=False)`), for `NativeEvalLoader`;
+  * `load_batch_raw`: raw pixels top-left in a (stage, stage) buffer,
+    longer images pre-shrunk to fit, for the device letterbox of
+    `Detector(device_letterbox=True)`;
+  * `load_batch_scaled`: long side resized to the stage size (the
+    `load_image` contract), for the device augmentation of
+    data/device_augment.py.
+A file libjpeg cannot read (PNG, BMP, ...) is decoded by cv2 and placed
+by the same fill function as the JAX package's (`fb_eval`, `fb_raw`,
+`fb_scaled` below), bit for bit.
 
 If the library is absent and cannot be built, or does not load,
-`available()` is False and `make_val_loader(native="auto")` takes the
-Python loader.
+`available()` is False: `make_val_loader(native="auto")` then takes the
+Python loader, and `staging_pipeline` a `Cv2Pipeline`, which runs the
+same fill functions on every image of a batch in a thread pool. Each
+pipeline names its form in `.stager` ("native" or "cv2").
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import os
 import queue
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -51,11 +62,18 @@ def _load():
         lib.ip_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.ip_destroy.restype = None
         lib.ip_destroy.argtypes = [ctypes.c_void_p]
-        lib.ip_load_batch_eval.restype = ctypes.c_int
-        lib.ip_load_batch_eval.argtypes = [
+        staged = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                  ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
+                  ctypes.POINTER(ctypes.c_float)]
+        for fn in (lib.ip_load_batch_eval, lib.ip_load_batch_raw,
+                   lib.ip_load_batch_scaled):
+            fn.restype = ctypes.c_int
+            fn.argtypes = staged
+        lib.ip_load_batch_scaled_interp.restype = ctypes.c_int
+        lib.ip_load_batch_scaled_interp.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
-            ctypes.POINTER(ctypes.c_float)]
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)]
         _lib = lib
         return lib
 
@@ -64,8 +82,90 @@ def available() -> bool:
     return _load() is not None
 
 
+# -- the cv2 forms of the staging contracts ---------------------------------
+# Each returns fill(img_bgr, out_i, dims_i, i) that places one cv2-decoded
+# image into its (stage, stage, 3) slot as RGB and writes dims_i =
+# [staged_h, staged_w, orig_h, orig_w]: the JAX package's `_fb_*` closures,
+# which the native pipeline runs for a slot libjpeg failed and Cv2Pipeline
+# for every slot.
+
+def fb_eval(stage: int):
+    """The eval contract, a bit-identical mirror of the Python eval image
+    path (data/image.py::load_image + letterbox(augment=False)): float64
+    ratio, truncated dims, cv2.INTER_LINEAR, centred round(pad - 0.1)
+    placement, BGR->RGB at the end."""
+    def fill(img, out_i, dims_i, i=0):
+        import cv2
+
+        h, w = img.shape[:2]
+        r = stage / max(h, w)
+        sh, sw = h, w
+        if r != 1:
+            sh, sw = int(h * r), int(w * r)
+            img = cv2.resize(img, (sw, sh), interpolation=cv2.INTER_LINEAR)
+        top = int(round((stage - sh) / 2 - 0.1))
+        left = int(round((stage - sw) / 2 - 0.1))
+        out_i[:] = 0
+        out_i[top:top + sh, left:left + sw] = img[:, :, ::-1]
+        dims_i[:] = (sh, sw, h, w)
+    return fill
+
+
+def fb_raw(stage: int):
+    """The raw contract: pixels top-left, an image longer than the stage
+    pre-shrunk to fit (rounded dims, cv2.INTER_LINEAR)."""
+    def fill(img, out_i, dims_i, i=0):
+        import cv2
+
+        h, w = img.shape[:2]
+        sh, sw = h, w
+        if max(h, w) > stage:
+            d = stage / max(h, w)
+            sw = min(int(round(w * d)), stage)
+            sh = min(int(round(h * d)), stage)
+            img = cv2.resize(img, (sw, sh), interpolation=cv2.INTER_LINEAR)
+        out_i[:] = 0
+        out_i[:sh, :sw] = img[:, :, ::-1]
+        dims_i[:] = (sh, sw, h, w)
+    return fill
+
+
+def fb_scaled(stage: int, interps=None):
+    """The scaled contract: long side resized to the stage, up or down,
+    truncated dims (the load_image contract); `interps` holds a cv2
+    interpolation code per image (None: bilinear for all)."""
+    def fill(img, out_i, dims_i, i=0):
+        import cv2
+
+        h, w = img.shape[:2]
+        sh, sw = h, w
+        r = stage / max(h, w)
+        if max(h, w) != stage:
+            sh, sw = max(int(h * r), 1), max(int(w * r), 1)
+            flag = cv2.INTER_LINEAR if interps is None else int(interps[i])
+            img = cv2.resize(img, (sw, sh), interpolation=flag)
+        out_i[:] = 0
+        out_i[:sh, :sw] = img[:, :, ::-1]
+        dims_i[:] = (sh, sw, h, w)
+    return fill
+
+
+def _staging_buffer(out, n: int, stage: int) -> np.ndarray:
+    """`out` checked as an (n, stage, stage, 3) C-contiguous uint8 array
+    (a pinned buffer's view, say), or a new one when it is None."""
+    if out is None:
+        return np.empty((n, stage, stage, 3), np.uint8)
+    if (out.shape != (n, stage, stage, 3) or out.dtype != np.uint8
+            or not out.flags.c_contiguous):
+        raise ValueError(f"staging buffer must be ({n}, {stage}, {stage}, 3) "
+                         f"C-contiguous uint8, got {out.shape} {out.dtype}")
+    return out
+
+
 class NativePipeline:
-    """Decode/letterbox pipeline handle over the C++ thread pool."""
+    """Decode pipeline handle over the C++ thread pool."""
+
+    stager = "native"
 
     def __init__(self, input_size: int, threads: int = 8):
         lib = _load()
@@ -81,9 +181,10 @@ class NativePipeline:
             self._lib.ip_destroy(h)
             self._h = None
 
-    def _fallback(self, paths, bad_mask, out, dims, stage) -> int:
-        """Decode the slots the native pool failed through cv2, in the
-        eval geometry; returns how many cv2 could not read either."""
+    @staticmethod
+    def _fallback(paths, bad_mask, out, dims, fill_one) -> int:
+        """Decode the slots the native pool failed through cv2 and place
+        them with `fill_one`; returns how many cv2 could not read either."""
         import cv2
 
         remaining = 0
@@ -92,48 +193,112 @@ class NativePipeline:
             if img is None:
                 remaining += 1
                 continue
-            self._fb_eval(img, out[int(i)], dims[int(i)], stage)
+            fill_one(img, out[int(i)], dims[int(i)], int(i))
         return remaining
 
-    @staticmethod
-    def _fb_eval(img, out_i, dims_i, stage):
-        """Bit-identical mirror of the Python eval image path
-        (data/image.py::load_image + letterbox(augment=False)): float64
-        ratio, truncated dims, cv2.INTER_LINEAR, centered round(pad - 0.1)
-        placement, BGR->RGB at the end."""
-        import cv2
-
-        h, w = img.shape[:2]
-        r = stage / max(h, w)
-        sh, sw = h, w
-        if r != 1:
-            sh, sw = int(h * r), int(w * r)
-            img = cv2.resize(img, (sw, sh), interpolation=cv2.INTER_LINEAR)
-        top = int(round((stage - sh) / 2 - 0.1))
-        left = int(round((stage - sw) / 2 - 0.1))
-        out_i[:] = 0
-        out_i[top:top + sh, left:left + sw] = img[:, :, ::-1]
-        dims_i[:] = (sh, sw, h, w)
+    def _staged(self, fn, paths, stage, fill_one, out=None, extra=()):
+        """Run the C++ staging call `fn` (with `extra` arguments after the
+        stage size) into `out`, then the cv2 fallback on the slots it
+        failed. Returns (images, dims, n_failures);
+        failed slots are zeroed with dims[i, 0] == -1."""
+        n = len(paths)
+        out = _staging_buffer(out, n, stage)
+        dims = np.empty((n, 4), np.float32)
+        arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+        nfail = fn(self._h, arr, n, stage, *extra,
+                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                   dims.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if nfail:
+            nfail = self._fallback(paths, dims[:, 0] < 0, out, dims, fill_one)
+        return out, dims, int(nfail)
 
     def load_batch_eval(self, paths: list[str], stage: int):
         """Parallel decode + the eval image contract in one pass:
         load_image's resize (long side == stage, truncated dims), then
-        the centered letterbox pad. Returns (images (N, stage, stage, 3)
+        the centred letterbox pad. Returns (images (N, stage, stage, 3)
         uint8 RGB, dims (N, 4) [staged_h, staged_w, orig_h, orig_w],
         n_failures); failed slots are zeroed with dims[i, 0] == -1. Label
         geometry follows from dims: pad_w = (stage - staged_w) / 2,
         pad_h = (stage - staged_h) / 2."""
+        return self._staged(self._lib.ip_load_batch_eval, paths, stage,
+                            fb_eval(stage))
+
+    def load_batch_raw(self, paths: list[str], stage: int, out=None):
+        """Parallel decode into a raw (N, stage, stage, 3) top-left staging
+        buffer (no letterbox: ops/letterbox.py runs it on the card);
+        images longer than `stage` are pre-shrunk to fit. `out`: the
+        buffer to fill, new when None. Returns (buffer, dims (N, 4)
+        [staged_h, staged_w, orig_h, orig_w], n_failures); failed slots
+        zeroed with dims[i, 0] == -1."""
+        return self._staged(self._lib.ip_load_batch_raw, paths, stage,
+                            fb_raw(stage), out)
+
+    def load_batch_scaled(self, paths: list[str], stage: int, interps=None,
+                          out=None):
+        """Parallel decode + resize so every image's long side == stage (up
+        or down; truncated dims, the load_image contract), top-left in a
+        (N, stage, stage, 3) buffer: the device-augment staging.
+        `interps`: per-image cv2 interpolation codes (0 nearest / 1 linear
+        / 2 cubic / 3 area / 4 lanczos4), the random-interp train
+        prescale; None means bilinear for all. Returns as
+        load_batch_raw."""
+        if interps is None:
+            return self._staged(self._lib.ip_load_batch_scaled, paths, stage,
+                                fb_scaled(stage), out)
+        codes = (ctypes.c_int * len(paths))(*[int(v) for v in interps])
+        return self._staged(self._lib.ip_load_batch_scaled_interp, paths,
+                            stage, fb_scaled(stage, interps), out,
+                            extra=(codes, 0))  # 0: RGB, not BGR
+
+
+class Cv2Pipeline:
+    """NativePipeline's staging calls with cv2 alone, for a machine where
+    the native library cannot be built: every image of a batch is read by
+    cv2.imread and placed by the fill function the native pipeline runs
+    for a failed slot, in a thread pool (cv2 releases the GIL)."""
+
+    stager = "cv2"
+
+    def __init__(self, threads: int = 8):
+        self.threads = max(threads, 1)
+
+    def _staged(self, paths, stage, fill_one, out=None):
+        import cv2
+
         n = len(paths)
-        out = np.empty((n, stage, stage, 3), np.uint8)
+        out = _staging_buffer(out, n, stage)
         dims = np.empty((n, 4), np.float32)
-        arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
-        nfail = self._lib.ip_load_batch_eval(
-            self._h, arr, n, stage,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            dims.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
-        if nfail:
-            nfail = self._fallback(paths, dims[:, 0] < 0, out, dims, stage)
-        return out, dims, int(nfail)
+
+        def one(i):
+            img = cv2.imread(paths[i])
+            if img is None:
+                out[i] = 0
+                dims[i] = (-1, 0, 0, 0)
+                return 1
+            fill_one(img, out[i], dims[i], i)
+            return 0
+
+        with ThreadPoolExecutor(self.threads) as pool:
+            nfail = sum(pool.map(one, range(n)))
+        return out, dims, nfail
+
+    def load_batch_raw(self, paths: list[str], stage: int, out=None):
+        """NativePipeline.load_batch_raw through cv2."""
+        return self._staged(paths, stage, fb_raw(stage), out)
+
+    def load_batch_scaled(self, paths: list[str], stage: int, interps=None,
+                          out=None):
+        """NativePipeline.load_batch_scaled through cv2."""
+        return self._staged(paths, stage, fb_scaled(stage, interps), out)
+
+
+def staging_pipeline(input_size: int, threads: int = 8):
+    """The staging pipeline of this machine: NativePipeline where the
+    native library loads, else Cv2Pipeline. Both offer load_batch_raw and
+    load_batch_scaled, and say which they are in `.stager`."""
+    if available():
+        return NativePipeline(input_size, threads=threads)
+    return Cv2Pipeline(threads)
 
 
 class NativeEvalLoader:

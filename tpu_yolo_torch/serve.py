@@ -2,8 +2,12 @@
 `tpu_yolo/serve.py`).
 
   host:    decode + letterbox with OpenCV in a thread pool (paths only);
-  device:  /255 in the compute dtype -> YOLO.forward_raw -> nms_from_raw,
-           on the card unless the caller passes device="cpu";
+           with device_letterbox=True, decode only: raw pixels top-left
+           in a (stage_size, stage_size) buffer, through the native C++
+           pool or, where it cannot be built, cv2 (data/native_loader.py);
+  device:  [letterbox (ops/letterbox.py)] -> /255 in the compute dtype ->
+           YOLO.forward_raw -> nms_from_raw, on the card unless the caller
+           passes device="cpu";
   overlap: `stream` double-buffers: batch i+1 is staged in pinned host
            memory and copied with non_blocking=True while batch i runs,
            and each result comes back through its own pinned buffer and
@@ -22,7 +26,9 @@ import numpy as np
 import torch
 
 from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.models.yolov11 import YOLO
+from tpu_yolo_torch.ops.letterbox import letterbox_batch
 
 _DECODE_THREADS = 8
 
@@ -61,6 +67,7 @@ class Detector:
                  max_det: int = 300, compute_dtype=torch.bfloat16,
                  ranking: str = "approx", max_nms: int | None = None,
                  multi_label: bool | None = None, latency_mode: bool = False,
+                 device_letterbox: bool = False, stage_size: int = 960,
                  device="cuda"):
         """The Detector takes `model` over: it folds its BatchNorm and
         moves it to `device` and `compute_dtype` in place.
@@ -72,6 +79,12 @@ class Detector:
         a candidate; False keeps each anchor's argmax class only.
         `latency_mode`: the low-latency preset, multi_label=False and
         max_nms=256; explicitly passed values still win.
+        `device_letterbox`: `stream` decodes only (raw uint8 top-left in a
+        (stage_size, stage_size) staging buffer) and the aspect-preserving
+        resize + pad runs on the device (ops/letterbox.py); originals
+        longer than stage_size are pre-shrunk on the host to fit, and that
+        ratio is folded into the returned boxes per axis. `stager` then
+        says which decoder staged them ("native" or "cv2").
         `device`: "cuda" (default) or "cpu"; raises without a card unless
         the CPU is asked for."""
         if max_nms is None:
@@ -82,6 +95,9 @@ class Detector:
         self.cfg = model.cfg
         self.input_size = input_size
         self.compute_dtype = compute_dtype
+        self.device_letterbox = device_letterbox
+        self.stage_size = stage_size
+        self._stager = None  # the staging pipeline, made at first use
         self.model = model.fold_batchnorm().to(
             device=self.device, dtype=compute_dtype,
             memory_format=torch.channels_last).eval()
@@ -126,10 +142,57 @@ class Detector:
             list(pool.map(decode, range(len(paths))))
         return metas
 
+    @property
+    def stager(self) -> str | None:
+        """The decoder of the staged path, "native" or "cv2" (None before
+        its first batch)."""
+        return self._stager.stager if self._stager is not None else None
+
+    def _decode_batch_raw(self, paths: list[str], out: np.ndarray):
+        """Raw decode of `paths` into the staging buffer `out` (N, St, St,
+        3) uint8 RGB, for the device letterbox. Returns (N, 4) dims
+        [staged_h, staged_w, orig_h, orig_w], -1 in column 0 for an image
+        that failed to decode."""
+        if self._stager is None:
+            self._stager = native_loader.staging_pipeline(
+                self.input_size, threads=_DECODE_THREADS)
+        _, dims, _ = self._stager.load_batch_raw(paths, self.stage_size, out=out)
+        return dims
+
+    @staticmethod
+    def _metas_from_dims(dims: np.ndarray, out_size: int) -> np.ndarray:
+        """Host mirror of the device letterbox geometry, combined with the
+        host pre-shrink: (N, 4) dims -> (N, 6) metas [rx, pad_w, pad_h,
+        orig_w, orig_h, ry] in the _emit contract. The pre-shrink rounds
+        each axis on its own, so the total ratio differs per axis by up to
+        about a pixel on large originals: the sixth column is the y
+        ratio (column 0 the x ratio)."""
+        metas = np.full((len(dims), 6), -1, np.float32)
+        for i, (sh, sw, oh, ow) in enumerate(np.asarray(dims, np.float64)):
+            if sh < 0:
+                continue
+            r = min(out_size / sh, out_size / sw)
+            new_w, new_h = round(sw * r), round(sh * r)
+            dx = sw / ow if ow else 1.0
+            dy = sh / oh if oh else 1.0
+            metas[i] = (r * dx, (out_size - new_w) / 2,
+                        (out_size - new_h) / 2, ow, oh, r * dy)
+        return metas
+
     # -- inference --------------------------------------------------------
     def _predict(self, x_u8):
         with torch.inference_mode():
             x = x_u8.to(self.compute_dtype) / 255
+            return self.model.forward_nms(x, **self._nms)
+
+    def _predict_staged(self, staged_u8, hw):
+        """The device-letterbox program: raw staged uint8 (B, St, St, 3)
+        and true sizes (B, 2) -> letterbox (the single-resize serving
+        geometry) -> /255 -> forward -> NMS."""
+        with torch.inference_mode():
+            boxed, _ = letterbox_batch(staged_u8, hw, out_size=self.input_size,
+                                       allow_upscale=True)
+            x = boxed.to(self.compute_dtype) / 255
             return self.model.forward_nms(x, **self._nms)
 
     def detect_batch(self, images_u8):
@@ -176,22 +239,38 @@ class Detector:
     def stream(self, paths: Iterable[str], batch_size: int = 64,
                rescale: bool = True) -> Iterator[dict]:
         """Double-buffered streaming over image paths; yields one dict per
-        image: {path, boxes (N,4) xyxy original pixels, scores, classes}."""
+        image: {path, boxes (N,4) xyxy original pixels, scores, classes}.
+        With device_letterbox the buffers hold (batch_size, stage_size,
+        stage_size, 3) raw pixels and (batch_size, 2) true sizes; a
+        partial last batch is padded with zero pixels of size 1 x 1."""
         paths = list(paths)
-        s = self.input_size
+        staged = self.device_letterbox
+        s = self.stage_size if staged else self.input_size
         pin = self.device.type == "cuda"
         staging = [torch.zeros((batch_size, s, s, 3), dtype=torch.uint8,
                                pin_memory=pin) for _ in range(2)]
+        sizes = [torch.ones((batch_size, 2), dtype=torch.float32, pin_memory=pin)
+                 for _ in range(2)]
         pending = None  # (fetched result, metas, batch paths)
         for n, start in enumerate(range(0, len(paths), batch_size)):
             chunk = paths[start:start + batch_size]
-            # staging[n % 2] is free: batch n-2's result, emitted last
-            # round, came after its copy in stream order
+            # staging[n % 2] and sizes[n % 2] are free: batch n-2's
+            # result, emitted last round, came after their copies in
+            # stream order
             host = staging[n % 2]
             host[len(chunk):] = 0
-            metas = self._decode_batch(chunk, host.numpy())
-            res = self._fetch(self._predict(
-                host.to(self.device, non_blocking=True)))
+            if staged:
+                dims = self._decode_batch_raw(chunk, host[:len(chunk)].numpy())
+                metas = self._metas_from_dims(dims, self.input_size)
+                hw = sizes[n % 2]
+                hw[:len(chunk)] = torch.from_numpy(np.maximum(dims[:, :2], 1.0))
+                hw[len(chunk):] = 1.0
+                res = self._predict_staged(host.to(self.device, non_blocking=True),
+                                           hw.to(self.device, non_blocking=True))
+            else:
+                metas = self._decode_batch(chunk, host.numpy())
+                res = self._predict(host.to(self.device, non_blocking=True))
+            res = self._fetch(res)
             if pending is not None:
                 yield from self._emit(*pending, rescale)
             pending = (res, metas, chunk)
@@ -215,8 +294,9 @@ class Detector:
             boxes = np.array(res["boxes"][i][:n], np.float32)
             if rescale and n:
                 r, pw, ph, ow, oh = metas[i][:5]
+                ry = metas[i][5] if metas.shape[1] > 5 else r
                 boxes[:, [0, 2]] = ((boxes[:, [0, 2]] - pw) / r).clip(0, ow)
-                boxes[:, [1, 3]] = ((boxes[:, [1, 3]] - ph) / r).clip(0, oh)
+                boxes[:, [1, 3]] = ((boxes[:, [1, 3]] - ph) / ry).clip(0, oh)
             yield {"path": path, "boxes": boxes,
                    "scores": np.array(res["scores"][i][:n], np.float32),
                    "classes": np.array(res["classes"][i][:n], np.int32)}

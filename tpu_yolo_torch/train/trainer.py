@@ -17,6 +17,11 @@ Kept from the JAX package, which keeps them from the reference:
   * per-epoch eval of the EMA weights, BN-folded, on val2017
     (eval/evaluator.py; zeros without a val2017.txt); best.ckpt follows
     its mAP.
+  * --device-augment: the host stages raw sources and draws the
+    augmentation (data/device_augment.py), the pixel work runs on the
+    device (ops/augment_device.py) and the augmented batch never comes
+    back to the host; the mosaic cutoff switches the loader to its
+    plain (letterbox + affine) program.
 """
 from __future__ import annotations
 
@@ -80,11 +85,64 @@ def _device(device) -> torch.device:
     return device
 
 
+def _params_to_device(params: dict, device: torch.device) -> dict:
+    """A batch's augmentation parameters (a dict of numpy arrays, nested
+    for mixup) on `device`: packed as f32 (flips as 0/1) into one
+    buffer, pinned on the way to the card, copied once and split."""
+    leaves = []
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                leaves.append((path + (k,), np.asarray(v, np.float32)))
+
+    walk(params, ())
+    flat = torch.from_numpy(np.concatenate([v.ravel() for _, v in leaves]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    out: dict = {}
+    offset = 0
+    for path, v in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = flat[offset:offset + v.size].view(v.shape)
+        offset += v.size
+    return out
+
+
+def augment_on_device(batch, device: torch.device, size: int):
+    """One DeviceAugmentLoader batch -> (uint8 (B, S, S, 3) images on
+    `device`, targets). The program follows from the batch: arity 4 is
+    the plain program, a 6-dim source the mixup one, "minv" in the
+    parameters the rotation/shear form."""
+    from tpu_yolo_torch.ops import augment_device as AD
+
+    if len(batch) == 3:                # mosaic / mixup
+        staged, params, targets = batch
+        general = "minv" in params.get("a", params)
+        if staged.dim() == 6:
+            prog = AD.mixup_augment_batch_general if general else AD.mixup_augment_batch
+        else:
+            prog = AD.augment_batch_general if general else AD.augment_batch
+        inputs = (staged.to(device, non_blocking=True),)
+    else:                              # plain (mosaic cutoff or mosaic=0)
+        staged, hw, params, targets = batch
+        prog = (AD.plain_augment_batch_general if "minv" in params
+                else AD.plain_augment_batch)
+        inputs = (staged.to(device, non_blocking=True),
+                  hw.to(device, non_blocking=True))
+    images = prog(*inputs, _params_to_device(params, device), out_size=size)
+    return images, targets
+
+
 def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
     """Full training run; returns the final TrainState. `args` needs:
     data_dir, input_size, batch_size, epochs, save_dir, resume
     (path|None), weights (path|None), workers, model_size; optional:
-    gt_bucket, remat, remat_level, tensorboard."""
+    gt_bucket, remat, remat_level, tensorboard, device_augment, seed."""
     device = _device(device)
     os.makedirs(args.save_dir, exist_ok=True)
     start_epoch, best = 0, 0.0
@@ -118,17 +176,27 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
         state = init_train_state(model, ema=True, accumulate=accumulate)
 
     # --- data ----------------------------------------------------------
-    dataset = DetectionDataset(
-        split_files(args.data_dir, "train2017"), args.input_size, hyp,
-        augment=True,
-        cache_path=os.path.join(args.data_dir, "train2017.cache.npy"))
+    filenames = split_files(args.data_dir, "train2017")
+    cache_path = os.path.join(args.data_dir, "train2017.cache.npy")
+    dataset = DetectionDataset(filenames, args.input_size, hyp, augment=True,
+                               cache_path=cache_path)
     loader = DataLoader(dataset, batch, shuffle=True,
                         num_workers=args.workers, drop_last=True)
+    dev_loader = None
+    if getattr(args, "device_augment", False):
+        from tpu_yolo_torch.data.device_augment import DeviceAugmentLoader
+
+        dev_loader = DeviceAugmentLoader(
+            filenames, args.input_size, hyp, batch, cache_path=cache_path,
+            threads=args.workers, seed=getattr(args, "seed", 0),
+            pin_memory=device.type == "cuda")
+        print(f"[train] device augment: stager {dev_loader.stager}", flush=True)
+    active = loader if dev_loader is None else dev_loader
     fixed_bucket = int(getattr(args, "gt_bucket", 0) or 0)
     warned_gt_overflow = False
 
     # the active loader's length drives the LR schedule and the step count
-    num_steps = len(loader)
+    num_steps = len(active)
     schedule = optim.linear_lr(args.epochs, num_steps, hyp)
     try:
         optim.plot_lr(schedule, os.path.join(args.save_dir, "lr.png"))
@@ -144,7 +212,7 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
     # the buffer is free again once the step's losses have been read.
     pinned = (torch.empty((batch, args.input_size, args.input_size, 3),
                           dtype=torch.uint8, pin_memory=True)
-              if device.type == "cuda" else None)
+              if device.type == "cuda" and dev_loader is None else None)
 
     log = open(os.path.join(args.save_dir, "step.csv"), "w", newline="")
     logger = csv.DictWriter(log, fieldnames=[
@@ -164,8 +232,11 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
             # mosaic off once 10 epochs remain; `<=` so a resume that
             # lands past the crossing still disables it. Runs shorter
             # than 10 epochs never cross, keeping mosaic.
-            dataset.mosaic = args.epochs - epoch > 10 or args.epochs < 10
-            loader.set_epoch(epoch)
+            mosaic_on = args.epochs - epoch > 10 or args.epochs < 10
+            dataset.mosaic = mosaic_on
+            if dev_loader is not None:
+                dev_loader.mosaic = mosaic_on and hyp.get("mosaic", 1.0) > 0
+            active.set_epoch(epoch)
 
             # Gradients are zeroed at every epoch start, which drops any
             # accumulated-but-unapplied tail when num_steps % accumulate
@@ -178,11 +249,17 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
             epoch_gt_truncated = 0  # --gt-bucket label loss this epoch
             t0 = time.perf_counter()
 
-            for i, (images, targets) in enumerate(loader):
-                if pinned is not None:
+            for i, data in enumerate(active):
+                if dev_loader is not None:
+                    # the augmented batch stays on the device
+                    images_dev, targets = augment_on_device(data, device,
+                                                            args.input_size)
+                elif pinned is not None:
+                    images, targets = data
                     pinned.copy_(torch.from_numpy(images))
                     images_dev = pinned.to(device, non_blocking=True)
                 else:
+                    images, targets = data
                     images_dev = torch.from_numpy(images)
                 step = i + num_steps * epoch
                 lr = float(schedule[min(step, len(schedule) - 1)])
