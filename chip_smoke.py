@@ -18,8 +18,16 @@ timed (phases k, l); `Detector(device_letterbox=True).stream` at batch
 128 beside the host-letterbox stream, an f32 check of the staged path
 and one run of `python -m tpu_yolo_torch.detect --device-letterbox`
 (phase m); the trainer with `--device-augment`, mosaic and plain, beside
-the host-loader trainer on the same files (phase n). Each phase prints
-one JSON line; the line before the last lists the kernels
+the host-loader trainer on the same files (phase n). Then the saved
+serving program (phase o): `Detector.save_compiled` of the plain and the
+staged program at batch 128, each loaded by `Detector.load_compiled` in a
+fresh process that imports only the package, its detections bit-equal to
+the live Detector's and both kernels counted there, beside a fresh live
+Detector's first batch and rate; and one timing row of the forward with
+the space-to-depth stem beside the plain stem. The kernels are custom ops
+(`torch.ops.tpu_yolo_torch.*`), so every launch goes through the
+dispatcher. Each phase prints one JSON line; the line before the last
+lists the kernels
 with their launches on the main path, errors, times and bounds (`ms` and
 `library_ms` from launches replayed out of a CUDA graph, so that the
 host's launch time stays out; `ms_with_launch` from eager calls), and the
@@ -82,6 +90,9 @@ LETTERBOX_SIZES = ((480, 640), (640, 480), (1080, 1920), (300, 200), (960, 960),
                    (123, 777))
 AUG_CHECK_BATCH = 4  # phase l: programs card vs CPU at this batch
 STAGED_FILES = 128   # phase m: JPEGs of 480x640, 640x480 and 1080x1920 in turn
+ARTIFACT_BATCHES = 10  # phase o: timed batches per process
+# phase k's time at (128, 960 -> 640) when the products ran in TF32 (H100)
+TF32_LETTERBOX_MS = (8.69, 8.77)
 DA_IMAGES = 256      # phase n: the seeded mini-COCO, 4 steps an epoch
 PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
 
@@ -413,6 +424,11 @@ def main() -> int:
 
     # (m) staged serving: Detector(device_letterbox=True) and detect
     _serve_staged_phase(cfg, smi, state, launches)
+
+    # (o) the saved serving program, loaded in fresh processes; then the
+    # forward with the space-to-depth stem beside the plain stem
+    _serve_artifact_phase(cfg, smi, state, imgs, launches)
+    _s2d_stem_row(cfg, smi, state, imgs)
 
     # (n) the trainer with --device-augment beside the host loader
     _train_device_augment_phase(cfg, smi, launches)
@@ -818,14 +834,31 @@ def _peak_gb(fn) -> float:
 
 
 def _letterbox_phase(dev, smi):
-    """Phase (k): the device letterbox, card against CPU and against cv2
-    on staged images of mixed aspect ratios, then timed at (128, 960 ->
-    640) beside the bytes and operations of its two products."""
+    """Phase (k): the device letterbox, card against CPU (bit for bit) and
+    against cv2 on staged images of mixed aspect ratios, the global TF32
+    flag left as it was, then timed at (128, 960 -> 640) beside the bytes
+    and operations of its two products and the time its TF32 products
+    took."""
     import cv2
     import torch
 
     from tpu_yolo_torch.data.native_loader import fb_raw
     from tpu_yolo_torch.ops.letterbox import letterbox_batch
+
+    flag = torch.backends.cuda.matmul.allow_tf32
+    small = torch.randint(0, 256, (2, 96, 96, 3), dtype=torch.uint8, device=dev)
+    small_hw = torch.tensor([[96.0, 80.0], [50.0, 96.0]], device=dev)
+    flag_kept = []
+    for value in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = value
+        outs = letterbox_batch(small, small_hw, out_size=64)[0]
+        torch.cuda.synchronize()
+        flag_kept.append(torch.backends.cuda.matmul.allow_tf32 == value)
+        if value:
+            check(torch.equal(outs, off_out), "letterbox depends on the TF32 flag")
+        off_out = outs
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    check(all(flag_kept), f"the letterbox changed the global TF32 flag: {flag_kept}")
 
     rng = np.random.default_rng(SEED + 5)
     n = len(LETTERBOX_SIZES)
@@ -850,7 +883,7 @@ def _letterbox_phase(dev, smi):
                       - ref.astype(np.int16))
         oracle.append(dict(original=list(LETTERBOX_SIZES[i]), staged=[sh, sw],
                            mean=float(diff.mean()), q99=float(np.quantile(diff, 0.99))))
-    check(_pixels_ok(agree) and meta_err <= 1e-6,
+    check(agree["equal_share"] == 1.0 and meta_err <= 1e-6,
           f"letterbox card vs CPU: {agree}, metas {meta_err}")
     check(all(o["mean"] < 1.5 and o["q99"] <= 6 for o in oracle),
           f"letterbox card vs cv2: {oracle}")
@@ -866,15 +899,233 @@ def _letterbox_phase(dev, smi):
     product_bytes = 4 * (b * s * st + b * st * st * 3 + b * s * st * 3      # R_y, x, y
                          + b * 3 * s * st + b * s * st + b * 3 * s * s)    # y, R_x, out
     bound, bound_by = _bound(b * st * st * 3 + b * s * s * 3 + b * 8, flops,
-                             PEAK_FLOPS["tfloat32"])
+                             PEAK_FLOPS["bfloat16"])
     emit("letterbox_check", nvidia_smi=smi, images=n, stage=STAGE, size=SIZE,
          card_vs_cpu=agree, metas_max_abs_err=meta_err, card_vs_cv2=oracle,
-         threshold=f"card vs CPU: {PIXEL_GATE}, metas within 1e-6; card vs cv2: "
-                   f"mean < 1.5, q99 <= 6",
-         timed=dict(batch=b, shape=[b, st, st, 3], ms=ms,
+         global_tf32_flag_kept=flag_kept,
+         products="bf16 operands, f32 result (aten::bmm.dtype)",
+         threshold="card vs CPU: uint8 equal everywhere, metas within 1e-6, "
+                   "the same output with the TF32 flag off and on; card vs cv2: "
+                   "mean < 1.5, q99 <= 6",
+         timed=dict(batch=b, shape=[b, st, st, 3], ms=ms, tf32_products_ms=TF32_LETTERBOX_MS,
                     products_tflop=flops / 1e12, products_f32_bytes_gb=product_bytes / 1e9,
                     tap_matrix_mb=b * s * st * 4 / 1e6, bound_ms=bound, bound_by=bound_by,
                     peak_memory_gb=peak))
+
+
+_ARTIFACT_CHILD = r"""
+import io, json, sys, time, zipfile
+
+import numpy as np
+import torch
+
+from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.models.yolov11 import YOLO
+from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+from tpu_yolo_torch.serve import Detector
+
+mode, tmp, size, batches = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+imgs = np.load(tmp + "/images.npy")
+params = torch.load(tmp + "/weights.pt")
+out = {"mode": mode, "jax_imported": "jax" in sys.modules}
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda").add_(1).cpu()      # CUDA context
+out["cuda_init_s"] = time.perf_counter() - t0
+if mode == "loaded":   # where a load's time goes: the program alone
+    t0 = time.perf_counter()
+    with zipfile.ZipFile(tmp + "/plain.pt2z") as z:
+        torch.export.load(io.BytesIO(z.read("program.pt2"))).module()
+    out["export_load_s"] = time.perf_counter() - t0
+
+
+def zero():
+    attention_cuda.fused_attention.launches = 0
+    nms_cuda.greedy_keep.launches = 0
+
+
+def counts():
+    return {"attention": attention_cuda.fused_attention.launches,
+            "nms": nms_cuda.greedy_keep.launches}
+
+
+t0 = time.perf_counter()
+if mode == "loaded":
+    det = Detector.load_compiled(tmp + "/plain.pt2z", params)
+else:
+    det = Detector(YOLO.from_state_dict(get_model_config("n"), params),
+                   input_size=size, device="cuda")
+out["load_s"] = time.perf_counter() - t0
+zero()
+t0 = time.perf_counter()
+res = {k: v.cpu().numpy() for k, v in det.detect_batch(imgs).items()}
+out["first_batch_s"] = time.perf_counter() - t0
+out["launches"] = counts()
+t0 = time.perf_counter()
+for _ in range(batches):
+    det.detect_batch(imgs)
+torch.cuda.synchronize()
+out["img_per_s"] = len(imgs) * batches / (time.perf_counter() - t0)
+np.savez(tmp + "/" + mode + "_plain.npz", **res)
+if mode == "loaded":
+    files = json.load(open(tmp + "/files.json"))
+    staged = Detector.load_compiled(tmp + "/staged.pt2z", params)
+    zero()
+    t0 = time.perf_counter()
+    got = list(staged.stream(files, batch_size=7))   # the artifact's batch wins
+    out["staged_stream_s"] = time.perf_counter() - t0
+    out["staged_launches"] = counts()
+    out["staged_batch"] = staged._fixed_batch
+    np.savez(tmp + "/loaded_staged.npz",
+             **{f"{k}_{i}": r[k] for i, r in enumerate(got)
+                for k in ("boxes", "scores", "classes")})
+    with zipfile.ZipFile(tmp + "/plain.pt2z") as z:
+        entries = {n: z.read(n) for n in z.namelist()}
+    meta = json.loads(entries["meta.json"])
+    meta["device_name"] = "NVIDIA B999"
+    entries["meta.json"] = json.dumps(meta).encode()
+    with zipfile.ZipFile(tmp + "/other_env.pt2z", "w") as z:
+        for n, data in entries.items():
+            z.writestr(n, data)
+    try:
+        Detector.load_compiled(tmp + "/other_env.pt2z", params)
+        out["environment_mismatch"] = "not raised"
+    except RuntimeError as e:
+        out["environment_mismatch"] = str(e)
+out["jax_imported"] = out["jax_imported"] or "jax" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def _serve_artifact_phase(cfg, smi, state, imgs, launches):
+    """Phase (o): the saved serving program. The plain program (phase e's
+    images, bs128) and the staged one (phase m's JPEGs, stage 960) are
+    saved, then loaded in a fresh process that imports only the package:
+    their detections must equal the live Detector's bit for bit and both
+    kernels' counters must advance there, and an artifact whose
+    environment differs must raise. A second fresh process builds a live
+    Detector, for the first batch's wall time and the rate beside the
+    loaded one's."""
+    import torch
+
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.serve import Detector
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = _write_jpegs(os.path.join(tmp, "jpegs"), STAGED_FILES)
+        with open(os.path.join(tmp, "files.json"), "w") as f:
+            json.dump(files, f)
+        np.save(os.path.join(tmp, "images.npy"), imgs)
+        folded = YOLO.from_state_dict(cfg, state).fold_batchnorm().cpu().state_dict()
+        torch.save(folded, os.path.join(tmp, "weights.pt"))
+
+        live = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+        staged = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE,
+                          device="cuda", device_letterbox=True, stage_size=STAGE)
+        save_s = {}
+        for key, det in (("plain", live), ("staged", staged)):
+            t0 = time.perf_counter()
+            det.save_compiled(os.path.join(tmp, f"{key}.pt2z"), batch_size=BATCH)
+            save_s[key] = time.perf_counter() - t0
+        want = {k: v.cpu().numpy() for k, v in live.detect_batch(imgs).items()}
+        want_staged = list(staged.stream(files, batch_size=BATCH))
+        # loaded and live in this process, alternated: the rate of each
+        in_process = {"loaded": [], "live": []}
+        loaded_here = Detector.load_compiled(os.path.join(tmp, "plain.pt2z"), folded)
+        x = torch.from_numpy(imgs).cuda()
+        for _ in range(3):
+            for key, det in (("loaded", loaded_here), ("live", live)):
+                det.detect_batch(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ARTIFACT_BATCHES):
+                    det.detect_batch(x)
+                torch.cuda.synchronize()
+                in_process[key].append(BATCH * ARTIFACT_BATCHES
+                                       / (time.perf_counter() - t0))
+        del live, staged, loaded_here, x
+        torch.cuda.empty_cache()
+
+        children = {}
+        for mode in ("loaded", "live"):
+            proc = subprocess.run(
+                [sys.executable, "-c", _ARTIFACT_CHILD, mode, tmp, str(SIZE),
+                 str(ARTIFACT_BATCHES)], cwd=root, capture_output=True, text=True,
+                timeout=600)
+            check(proc.returncode == 0,
+                  f"{mode} child: rc {proc.returncode}, {proc.stderr[-3000:]}")
+            children[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+        loaded, fresh = children["loaded"], children["live"]
+        got = np.load(os.path.join(tmp, "loaded_plain.npz"))
+        fresh_res = np.load(os.path.join(tmp, "live_plain.npz"))
+        plain_equal = all(np.array_equal(got[k], want[k]) for k in want)
+        fresh_equal = all(np.array_equal(fresh_res[k], want[k]) for k in want)
+        got_staged = np.load(os.path.join(tmp, "loaded_staged.npz"))
+        staged_equal = all(
+            np.array_equal(got_staged[f"{k}_{i}"], r[k])
+            for i, r in enumerate(want_staged) for k in ("boxes", "scores", "classes"))
+        sizes = {key: os.path.getsize(os.path.join(tmp, f"{key}.pt2z"))
+                 for key in ("plain", "staged")}
+    weights_bytes = sum(t.numel() * 2 for t in folded.values())   # bf16 in the program
+    batches = STAGED_FILES // BATCH
+    check(plain_equal, "loaded plain program vs live Detector: detections differ")
+    check(staged_equal, "loaded staged program vs live Detector: detections differ")
+    check(min(loaded["launches"].values()) > 0
+          and min(loaded["staged_launches"].values()) >= batches,
+          f"kernels not launched by the loaded programs: {loaded}")
+    check("device_name" in loaded["environment_mismatch"],
+          f"environment mismatch: {loaded['environment_mismatch']}")
+    check(not loaded["jax_imported"] and not fresh["jax_imported"],
+          "a child imported jax")
+    check(loaded["staged_batch"] == BATCH and max(sizes.values()) < weights_bytes,
+          f"artifact: batch {loaded['staged_batch']}, sizes {sizes}")
+    emit("serve_artifact", nvidia_smi=smi, model="v11-n", size=SIZE, batch=BATCH,
+         stage=STAGE, dtype="bfloat16", max_nms=1024,
+         artifact_bytes=sizes, weights_bytes_bf16=weights_bytes,
+         save_s=save_s, load_s=loaded["load_s"],
+         cuda_init_s=dict(loaded=loaded["cuda_init_s"], fresh_live=fresh["cuda_init_s"]),
+         export_load_s=loaded["export_load_s"],
+         in_process_img_per_s=in_process,
+         first_batch_s=dict(loaded=loaded["first_batch_s"],
+                            fresh_live=fresh["first_batch_s"]),
+         fresh_live_construct_s=fresh["load_s"],
+         img_per_s=dict(loaded=loaded["img_per_s"], fresh_live=fresh["img_per_s"]),
+         batches_timed=ARTIFACT_BATCHES,
+         launches_first_batch=dict(loaded=loaded["launches"], fresh_live=fresh["launches"]),
+         staged=dict(files=STAGED_FILES, launches=loaded["staged_launches"],
+                     stream_s=loaded["staged_stream_s"], equal=staged_equal),
+         plain_equal=plain_equal, fresh_live_equal=fresh_equal,
+         environment_mismatch=loaded["environment_mismatch"],
+         threshold="loaded vs live: detections bit-equal, plain on phase e's "
+                   "images and staged on phase m's JPEGs; both kernels launched "
+                   "in the loading process; a device-name mismatch raises")
+
+
+def _s2d_stem_row(cfg, smi, state, imgs):
+    """One timing row, no gate on time: the forward (forward_raw) at
+    bs128, 640 px, bf16 with the space-to-depth stem beside the plain
+    stem, and how far their raw maps are apart."""
+    import torch
+
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.serve import Detector
+
+    plain = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+    s2d = Detector(YOLO.from_state_dict(cfg, state).fold_batchnorm()
+                   .fold_stem_space_to_depth(), input_size=SIZE, device="cuda")
+    x = (torch.from_numpy(imgs).cuda().to(torch.bfloat16) / 255)
+    with torch.inference_mode():
+        a, b = plain.model.forward_raw(x), s2d.model.forward_raw(x)
+        diff = max(float((p.float() - q.float()).abs().max()) for p, q in zip(a, b))
+        scale = max(float(p.float().abs().max()) for p in a)
+        check(all(bool(torch.isfinite(q.float()).all()) for q in b),
+              "non-finite s2d-stem forward")
+        ms = {key: cuda_ms(lambda m=det.model: m.forward_raw(x), iters=10)
+              for key, det in (("plain", plain), ("s2d", s2d))}
+        ms["plain_again"] = cuda_ms(lambda: plain.model.forward_raw(x), iters=10)
+    emit("s2d_stem", nvidia_smi=smi, model="v11-n", size=SIZE, batch=BATCH,
+         dtype="bfloat16", forward_raw_ms=ms, s2d_over_plain=ms["s2d"] / ms["plain"],
+         raw_max_abs_diff=diff, raw_max_abs=scale)
 
 
 def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
@@ -1197,7 +1448,7 @@ def _kernel_rows(captured, launches):
                 <= tol + tol * want.float().abs()).all()),
           "attention kernel vs plain at the main-path inputs")
     kernels = [dict(
-        name="psa_attention", route="cuda",
+        name="psa_attention", route="cuda", op="tpu_yolo_torch::psa_attention",
         source="tpu_yolo_torch/csrc/attention.cu",
         replaces="tpu_yolo/ops/attention_pallas.py:66",
         launches=launches["attention"], max_abs_err=attn_err,
@@ -1222,7 +1473,7 @@ def _kernel_rows(captured, launches):
     kernels[0]["second_shape"] = _attention_times(q2, k2, v2, scale)
 
     kernels.append(dict(
-        name="nms_greedy_keep", route="cuda",
+        name="nms_greedy_keep", route="cuda", op="tpu_yolo_torch::nms_greedy_keep",
         source="tpu_yolo_torch/csrc/nms_keep.cu",
         replaces="tpu_yolo/ops/nms_pallas.py:145",
         launches=launches["nms"], staged_serving_launches=launches["staged_nms"],
@@ -1242,7 +1493,7 @@ def _kernel_rows(captured, launches):
             -1, idx, True)
 
     kernels.append(dict(
-        name="assigner_topk_mask", route="cuda",
+        name="assigner_topk_mask", route="cuda", op="tpu_yolo_torch::topk_mask",
         source="tpu_yolo_torch/csrc/topk_mask.cu",
         replaces="tpu_yolo/ops/topk_pallas.py:78",
         shape=dict(b=x.shape[0], n=x.shape[1], a=x.shape[2], k=TOP_K,

@@ -149,6 +149,38 @@ def test_detector_runs_both_kernels(cuda):
     assert int(res["count"].min()) > 0
 
 
+@pytest.mark.parametrize("staged", [False, True])
+def test_saved_program_runs_the_kernels(cuda, tmp_path, staged):
+    """A saved serving program on the card: its graph calls the custom
+    ops, the loaded Detector launches both kernels, and its detections
+    equal the live Detector's bit for bit."""
+    cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
+                      csp=(False, True), num_classes=8)
+    params = init_params(0, cfg)
+    for level in params["head"]["cls"]:
+        level[4]["b"][:] = -1.0
+    state = YOLO.from_state_dict(cfg, from_jax_params(params, cfg)).fold_batchnorm().state_dict()
+    live = Detector(YOLO.from_state_dict(cfg, state), input_size=128, device="cuda",
+                    device_letterbox=staged, stage_size=160)
+    path = str(tmp_path / "det.pt2z")
+    live.save_compiled(path, batch_size=2)
+    loaded = Detector.load_compiled(path, state)
+    rng = np.random.default_rng(2)
+    if staged:
+        args = (torch.from_numpy(rng.integers(0, 256, (2, 160, 160, 3), np.uint8)).to(cuda),
+                torch.tensor([[120.0, 160.0], [160.0, 96.0]], device=cuda))
+        want = live._predict_staged(*args)
+    else:
+        args = (rng.integers(0, 256, (2, 128, 128, 3), np.uint8),)
+        want = live.detect_batch(*args)
+    attn, keep = fused_attention.launches, greedy_keep.launches
+    got = (loaded._predict_staged(*args) if staged else loaded.detect_batch(*args))
+    torch.cuda.synchronize()
+    assert fused_attention.launches == attn + 1 and greedy_keep.launches == keep + 1
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_bf16_train_step_runs_the_topk_kernel(cuda):
     """Three bf16 train steps on a narrow model: one top-k launch a step,
     none of the inference attention kernel, finite losses, and BN

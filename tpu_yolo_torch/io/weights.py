@@ -1,9 +1,12 @@
 """Weights into and out of the port's YOLO module.
 
-Out: `to_jax_params` (a state dict -> the JAX-layout tree) and
+Out: `to_jax_params` (a state dict -> the JAX-layout tree),
 `train_state_to_jax` / `train_state_from_jax`, which carry a whole train
 state (params, momentum, accumulated gradients, step, EMA) between the
-port and the JAX package's tree layout, the payload of a `.ckpt` file.
+port and the JAX package's tree layout, the payload of a `.ckpt` file,
+and `export_reference_state_dict` / `export_ultralytics_state_dict` /
+`save_torch_checkpoint`, which write unfolded weights in the reference's
+or Ultralytics' torch naming (the inverses of the importers below).
 
 In, three sources:
   * `from_jax_params`: a JAX-layout param tree of numpy arrays (what
@@ -15,6 +18,8 @@ In, three sources:
     (model.0.conv.weight, ..., model.23.cv2/cv3) -> a state dict.
   * `load_torch_state_dict`: .pt / .npz files, including pickled module
     trees whose classes are not importable (stub classes, scavenged).
+  * `load_partial`: a shape-matched partial load for transfer learning,
+    with a report of what was loaded, skipped and left.
 
 Every mapping is exact and coverage is asserted at 100% both ways: an
 unused source tensor or an unfilled destination raises. The key tables
@@ -240,13 +245,16 @@ def _check_coverage(state: dict, template: dict) -> None:
                              f"{tuple(template[key].shape)}")
 
 
-def _template(cfg, folded: bool) -> dict:
+def _template(cfg, folded: bool, s2d: bool = False) -> dict:
     from tpu_yolo_torch.models.yolov11 import YOLO
 
     model = YOLO(cfg)
     if folded:
         model.fold_batchnorm()
+    if s2d:
+        model.fold_stem_space_to_depth()
     return model.state_dict()
+
 
 
 def _tree_items(tree, prefix=()):
@@ -270,8 +278,10 @@ def from_jax_params(params, cfg) -> dict[str, torch.Tensor]:
         if path[-1] == "w" and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         state[".".join(path)] = torch.from_numpy(np.array(a))
+    from tpu_yolo_torch.models.yolov11 import has_s2d_stem
+
     folded = not any(k.endswith(".gamma") for k in state)
-    _check_coverage(state, _template(cfg, folded))
+    _check_coverage(state, _template(cfg, folded, has_s2d_stem(state)))
     return state
 
 
@@ -372,6 +382,157 @@ def convert_state_dict(state: dict[str, np.ndarray], cfg,
         out[key] = torch.from_numpy(np.array(tensor, dtype=np.float32))
     _check_coverage(out, _template(cfg, folded=False))
     return out
+
+
+def load_partial(state: dict[str, np.ndarray], template,
+                 source_format: str | None = None):
+    """Shape-matched partial load for transfer learning (the JAX
+    package's `load_partial`, e.g. a COCO backbone under a new
+    num_classes head). `state` is a reference- or Ultralytics-named torch
+    state dict (numpy arrays, OIHW); `template` a YOLO or its state dict.
+    Coverage is not asserted: returns (state dict, report), the state
+    dict float32 copies of the template's tensors with every matched one
+    replaced, the report listing 'loaded' keys, 'skipped_shape' (source
+    key, source shape, destination shape; OIHW), 'unmapped' source keys
+    (names neither layout knows, e.g. of another model family) and
+    'missing' keys (sorted). Keys are the port's."""
+    source_format = source_format or _detect_format(state.keys())
+    translate = (_translate_reference_key if source_format == "reference"
+                 else _translate_ultralytics_key)
+    if isinstance(template, torch.nn.Module):
+        template = template.state_dict()
+    out = {k: t.detach().cpu().float().clone() for k, t in template.items()}
+    report = {"loaded": [], "skipped_shape": [], "unmapped": [], "missing": []}
+    for src_key, tensor in state.items():
+        try:
+            path = translate(src_key)
+        except KeyError:
+            report["unmapped"].append(src_key)
+            continue
+        key = path and path.replace("/", ".")
+        if key not in out:
+            continue
+        if tuple(tensor.shape) != tuple(out[key].shape):
+            report["skipped_shape"].append(
+                (src_key, tuple(tensor.shape), tuple(out[key].shape)))
+            continue
+        out[key] = torch.from_numpy(np.array(tensor, dtype=np.float32))
+        report["loaded"].append(key)
+    report["missing"] = sorted(set(out) - set(report["loaded"]))
+    return out, report
+
+
+# ---------------------------------------------------------------------------
+# Inverse direction: the port's state dict -> torch-layout state dicts.
+# ---------------------------------------------------------------------------
+
+# the head's cls stage index -> Ultralytics cv3 submodule path
+_ULTRA_CLS_STAGE = {"0": "0.0", "1": "0.1", "2": "1.0", "3": "1.1", "4": "2"}
+_ULTRA_LAYER_OF = {v: k for k, v in _ULTRA_LAYERS.items() if v != "head"}
+
+
+def _module_groups(state) -> dict:
+    """{module path tuple: {leaf name: float32 numpy array}} over a state
+    dict (or a model's), in its key order."""
+    if isinstance(state, torch.nn.Module):
+        state = state.state_dict()
+    out = {}
+    for key, t in state.items():
+        *mod, leaf = key.split(".")
+        out.setdefault(tuple(mod), {})[leaf] = np.array(
+            t.detach().cpu().float() if isinstance(t, torch.Tensor) else t,
+            dtype=np.float32)
+    return out
+
+
+def _emit_module(state, name, leaves, *, bn_prefix):
+    """Write one module's leaves under torch naming (OIHW kernels, as the
+    port keeps them)."""
+    is_conv_bn = "gamma" in leaves
+    for leaf, val in leaves.items():
+        if leaf == "w":
+            state[f"{name}.conv.weight" if is_conv_bn else f"{name}.weight"] = val
+        elif leaf == "b":
+            state[f"{name}.bias"] = val
+        else:
+            torch_leaf = {"gamma": "weight", "beta": "bias",
+                          "mean": "running_mean", "var": "running_var"}[leaf]
+            state[f"{name}.{bn_prefix}.{torch_leaf}"] = val
+    if is_conv_bn:
+        state[f"{name}.{bn_prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _check_unfolded(groups):
+    if not any("gamma" in leaves for leaves in groups.values()):
+        raise ValueError("export needs unfolded (gamma/beta/mean/var) "
+                         "weights; folded ones lost the BN statistics")
+
+
+def export_reference_state_dict(state, cfg) -> dict[str, np.ndarray]:
+    """The port's unfolded state dict (or model) -> a reference-layout
+    torch state dict (numpy, OIHW): Conv = conv + norm, residual lists as
+    res_m, the PSA block's attention as conv1.{qkv,conv1,conv2} and its
+    feed-forward as conv2.N, plus the fixed DFL expectation conv that the
+    importer skips. The inverse of `_translate_reference_key`: it round-
+    trips bit for bit through convert_state_dict(source_format="reference")."""
+    groups = _module_groups(state)
+    _check_unfolded(groups)
+    out = {}
+    for mod_path, leaves in groups.items():
+        stem = ".".join(mod_path).replace(".m.", ".res_m.")
+        stem = re.sub(
+            r"^(net\.p5\.3\.res_m\.\d+)\.(.*)$",
+            lambda m: m.group(1) + "." + m.group(2)
+            .replace("attn.qkv", "conv1.qkv")
+            .replace("attn.pe", "conv1.conv1")
+            .replace("attn.proj", "conv1.conv2")
+            .replace("ffn.", "conv2."),
+            stem)
+        _emit_module(out, stem, leaves, bn_prefix="norm")
+    out["head.dfl.conv.weight"] = np.arange(
+        cfg.reg_max, dtype=np.float32).reshape(1, cfg.reg_max, 1, 1)
+    return out
+
+
+def export_ultralytics_state_dict(state, cfg) -> dict[str, np.ndarray]:
+    """The port's unfolded state dict (or model) -> an Ultralytics
+    YOLO11-layout state dict (model.N... keys, numpy, OIHW), so weights
+    trained by the port go back to that ecosystem
+    (`YOLO("yolo11n.yaml").model.load_state_dict(...)`). The inverse of
+    `_translate_ultralytics_key`: it round-trips bit for bit through
+    convert_state_dict(source_format="ultralytics")."""
+    groups = _module_groups(state)
+    _check_unfolded(groups)
+    out = {}
+    for mod_path, leaves in groups.items():
+        if mod_path[0] == "head":
+            branch, scale, stage = mod_path[1], mod_path[2], mod_path[3]
+            if branch == "box":
+                name = f"model.23.cv2.{scale}.{stage}"
+            else:
+                name = f"model.23.cv3.{scale}.{_ULTRA_CLS_STAGE[stage]}"
+        else:
+            net = mod_path[0] == "net"
+            layer = "/".join(mod_path[:3] if net else mod_path[:2])
+            parts = ["cv" + seg[-1] if seg in ("conv1", "conv2", "conv3")
+                     else seg for seg in mod_path[3 if net else 2:]]
+            name = ".".join(["model", _ULTRA_LAYER_OF[layer], *parts])
+        _emit_module(out, name, leaves, bn_prefix="bn")
+    out["model.23.dfl.conv.weight"] = np.arange(
+        cfg.reg_max, dtype=np.float32).reshape(1, cfg.reg_max, 1, 1)
+    return out
+
+
+def save_torch_checkpoint(path: str, state, cfg,
+                          target_format: str = "ultralytics"):
+    """Write a .pt that torch.load (and `load_torch_state_dict`) reads:
+    {"state_dict": {...}, "format": target_format}, in the Ultralytics or
+    the reference layout."""
+    export = (export_ultralytics_state_dict if target_format == "ultralytics"
+              else export_reference_state_dict)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in export(state, cfg).items()}
+    torch.save({"state_dict": sd, "format": target_format}, path)
 
 
 def load_checkpoint_params(path: str, cfg, source_format: str | None = None):

@@ -14,6 +14,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpu_yolo_torch.core.config import ModelConfig
@@ -163,6 +164,77 @@ def init_params(seed: int, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# The space-to-depth stem (an inference-graph transform).
+# ---------------------------------------------------------------------------
+
+
+def _stem_s2d_weight(w3: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) stride-2 kernel -> the equal (O, 4C, 2, 2) stride-1
+    kernel over a space-to-depth(2) input. Output (i, j) of the 3x3/s2
+    conv reads input pixels 2i-1..2i+1; in s2d coordinates those are
+    cells i-1..i at offsets di in {0, 1}, so
+    W2[o, (di, dj, c), a, b] = W3[o, c, 2a+di-1, 2b+dj-1], zero where that
+    index falls outside the 3x3 kernel, with a top/left pad of 1."""
+    cout, cin = w3.shape[:2]
+    w2 = torch.zeros((cout, 4 * cin, 2, 2), dtype=w3.dtype, device=w3.device)
+    for a in range(2):
+        for b in range(2):
+            for di in range(2):
+                for dj in range(2):
+                    ki, kj = 2 * a + di - 1, 2 * b + dj - 1
+                    if 0 <= ki < 3 and 0 <= kj < 3:
+                        ch = (di * 2 + dj) * cin
+                        w2[:, ch:ch + cin, a, b] = w3[:, :, ki, kj]
+    return w2
+
+
+def fold_stem_space_to_depth(state_dict: dict) -> dict:
+    """A state dict (folded or not) whose stem's 3x3/s2 conv is rewritten
+    as the exactly equal 2x2/s1 conv over a space-to-depth(2) input (the
+    JAX package's transform of the same name). The key stays
+    `net.p1.0.w`, with shape (O, 4C, 2, 2); a stem already rewritten is
+    left as it is. Apply after BatchNorm folding or weight loading."""
+    w = state_dict["net.p1.0.w"]
+    if w.shape[-1] != 3:
+        return dict(state_dict)
+    return {**state_dict, "net.p1.0.w": _stem_s2d_weight(w)}
+
+
+def _space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), channels ordered (di, dj, c)."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h // 2, w // 2, 4 * c))
+
+
+def space_to_depth_host(x: np.ndarray) -> np.ndarray:
+    """numpy mirror of the stem's device rearrange: (B, H, W, C) ->
+    (B, H/2, W/2, 4C), channel layout (di, dj, c). A staging side can
+    ship batches already in the s2d-stem layout (the same bytes,
+    permuted on the host), and the s2d model takes them as they are."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return np.ascontiguousarray(
+        x.transpose(0, 1, 3, 2, 4, 5)).reshape(b, h // 2, w // 2, 4 * c)
+
+
+def has_s2d_stem(state_dict) -> bool:
+    """Whether a state dict holds the space-to-depth stem (its 2x2
+    kernel; fold_stem_space_to_depth)."""
+    w = state_dict.get("net.p1.0.w")
+    return w is not None and w.shape[-1] == 2
+
+
+def _input_hw(x, cfg: ModelConfig) -> tuple[int, int]:
+    """Image-space (H, W) of an NHWC model input: a pre-rearranged s2d
+    batch (4·C_in channels, space_to_depth_host) covers twice its array
+    size per axis."""
+    if x.shape[-1] == 4 * cfg.width[0]:
+        return 2 * x.shape[1], 2 * x.shape[2]
+    return x.shape[1], x.shape[2]
+
+
+# ---------------------------------------------------------------------------
 # The model.
 # ---------------------------------------------------------------------------
 
@@ -229,8 +301,27 @@ class YOLO(nn.Module):
         model = cls(cfg)
         if not any(k.endswith(".gamma") for k in state_dict):
             model.fold_batchnorm()
+        if has_s2d_stem(state_dict):
+            model.fold_stem_space_to_depth()
         model.load_state_dict(state_dict, strict=True)
         return model
+
+    @property
+    def s2d_stem(self) -> bool:
+        """Whether the stem is the space-to-depth one
+        (fold_stem_space_to_depth)."""
+        return self.net["p1"][0].w.shape[-1] == 2
+
+    def _stem_input(self, x):
+        """NHWC images -> the stem's NCHW input. With the s2d stem an
+        image batch is rearranged on the device (a batch that already has
+        4·C_in channels is taken as it is) and padded top and left by
+        one, the stem's asymmetric padding."""
+        if not self.s2d_stem:
+            return x.permute(0, 3, 1, 2)
+        if x.shape[-1] != 4 * self.cfg.width[0]:
+            x = _space_to_depth2(x)
+        return F.pad(x.permute(0, 3, 1, 2), (1, 0, 1, 0))
 
     def forward_raw(self, x, remat=False):
         """NHWC images -> list of 3 NHWC maps (B, H/s, W/s, 4*reg_max + nc).
@@ -269,8 +360,7 @@ class YOLO(nn.Module):
                 c = conv(c)
             return torch.cat((b, c), 1)
 
-        x = x.permute(0, 3, 1, 2)
-        x = run(net["p1"][0], x)
+        x = run(net["p1"][0], self._stem_input(x))
         x = run(lambda xx: net["p2"][1](net["p2"][0](xx), remat=inner), x)
         p3 = run(lambda xx: net["p3"][1](net["p3"][0](xx), remat=inner), x)
         p4 = run(lambda xx: net["p4"][1](net["p4"][0](xx), remat=inner), p3)
@@ -295,7 +385,8 @@ class YOLO(nn.Module):
 
     def forward(self, x):
         """NHWC images -> decoded (B, A, 4+nc)."""
-        return self.decode_predictions(self.forward_raw(x), tuple(x.shape[1:3]))
+        return self.decode_predictions(self.forward_raw(x),
+                                       _input_hw(x, self.cfg))
 
     def forward_nms(self, x, **nms_kwargs):
         """One-call inference: forward -> fused decode + NMS
@@ -303,7 +394,7 @@ class YOLO(nn.Module):
         from tpu_yolo_torch.ops.nms import nms_from_raw
 
         return nms_from_raw(self.forward_raw(x), self.cfg,
-                            tuple(x.shape[1:3]), **nms_kwargs)
+                            _input_hw(x, self.cfg), **nms_kwargs)
 
     @torch.no_grad()
     def fold_batchnorm(self) -> "YOLO":
@@ -312,6 +403,19 @@ class YOLO(nn.Module):
         for m in self.modules():
             if isinstance(m, ConvBN):
                 m.fold_()
+        return self
+
+    @torch.no_grad()
+    def fold_stem_space_to_depth(self) -> "YOLO":
+        """Rewrite the stem in place as the exactly equal 2x2/s1 conv over
+        a space-to-depth input (module-level `fold_stem_space_to_depth`);
+        `forward_raw` then rearranges image inputs on the device or takes
+        pre-rearranged 4·C_in-channel ones."""
+        stem = self.net["p1"][0]
+        if not self.s2d_stem:
+            stem.w = nn.Parameter(_stem_s2d_weight(stem.w),
+                                  requires_grad=stem.w.requires_grad)
+        stem.stride, stem.padding = 1, 0
         return self
 
     @torch.no_grad()

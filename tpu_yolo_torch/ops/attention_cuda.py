@@ -2,9 +2,12 @@
 its plain PyTorch version.
 
 Replaces the TPU kernel `tpu_yolo/ops/attention_pallas.py::fused_attention`.
-`fused_attention` is the wrapper: it checks its inputs, runs the plain
-version for CPU tensors and the kernel for CUDA tensors, and counts its
-kernel launches in `fused_attention.launches`.
+The kernel is the custom op `torch.ops.tpu_yolo_torch.psa_attention`: the
+plain version on CPU tensors, the kernel on CUDA tensors, and a fake
+implementation that gives `torch.export` the output's shape, so an
+exported program calls the op (importing this module registers it).
+`fused_attention` is the wrapper: it checks its inputs, calls the op and
+counts the kernel's launches in `fused_attention.launches`.
 """
 from __future__ import annotations
 
@@ -57,10 +60,39 @@ def kernel_form(bh: int, t: int, dtype=torch.bfloat16) -> str:
     return ("resident", "streamed")[form]
 
 
+@torch.library.custom_op("tpu_yolo_torch::psa_attention", mutates_args=(),
+                         device_types="cpu")
+def psa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return attention_plain(q, k, v, scale)
+
+
+@psa_attention.register_kernel("cuda")
+def _psa_attention_cuda(q, k, v, scale):
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("fused_attention: inputs not 16-byte aligned")
+    out = torch.empty_like(v)
+    bh, t, _ = q.shape
+    with torch.cuda.device(q.device):
+        err = _library().psa_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t,
+            scale, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "psa_attention")
+    fused_attention.launches += 1
+    return out
+
+
+@psa_attention.register_fake
+def _psa_attention_fake(q, k, v, scale):
+    return torch.empty_like(v)
+
+
 def fused_attention(q, k, v, scale: float):
     """softmax(q·kᵀ·scale)·v for q, k (BH, T, 32) and v (BH, T, 64), all
-    bf16 or all f32 and contiguous (and 16-byte aligned on the card).
-    Raises on anything else."""
+    bf16 or all f32 and contiguous (and 16-byte aligned on the card), on
+    the CPU or a card. Raises on anything else."""
     if not (q.dtype == k.dtype == v.dtype
             and q.dtype in (torch.bfloat16, torch.float32)):
         raise TypeError(f"fused_attention takes bf16 or f32 q/k/v of one "
@@ -74,21 +106,9 @@ def fused_attention(q, k, v, scale: float):
         raise ValueError("fused_attention takes contiguous q, k, v")
     if not (q.device == k.device == v.device):
         raise ValueError("fused_attention: q, k, v on different devices")
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
-    if q.device.type != "cuda" or any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError(f"fused_attention: no kernel for {q.device} or "
-                         f"inputs not 16-byte aligned")
-    out = torch.empty_like(v)
-    bh, t, _ = q.shape
-    with torch.cuda.device(q.device):
-        err = _library().psa_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, t,
-            scale, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "psa_attention")
-    fused_attention.launches += 1
-    return out
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attention: no kernel for {q.device}")
+    return psa_attention(q, k, v, scale)
 
 
 fused_attention.launches = 0

@@ -70,19 +70,27 @@ def _mosaic_affine(srcs, inv_scale, off_x, off_y, lo_x, hi_x, lo_y, hi_y,
     return parts.view(b, q, 3, out_size, out_size).sum(1).clamp_(0.0, 255.0)
 
 
-def _hsv(r, g, b, gain_h, gain_s, gain_v):
-    """HSV jitter of float RGB channels on the uint8 grid; the gains
-    broadcast against the channels. Returns (r, g, b)."""
+def _hue(r, g, b):
+    """cv2's uint8 hue (0..179) of float RGB channels on the uint8 grid."""
     v = torch.maximum(torch.maximum(r, g), b)
-    mn = torch.minimum(torch.minimum(r, g), b)
-    diff = v - mn
+    diff = v - torch.minimum(torch.minimum(r, g), b)
     safe = torch.where(diff > 0, diff, 1.0)
     h = torch.where(
         v == r, 60.0 * (g - b) / safe,
         torch.where(v == g, 120.0 + 60.0 * (b - r) / safe,
                     240.0 + 60.0 * (r - g) / safe))
     h = torch.where(diff > 0, torch.where(h < 0, h + 360.0, h), 0.0)
-    h_u8 = torch.remainder(torch.round(h / 2.0), 180.0)     # cv2 uint8 hue
+    return torch.remainder(torch.round(h / 2.0), 180.0)
+
+
+def _hsv(r, g, b, gain_h, gain_s, gain_v, hue_rgb=None):
+    """HSV jitter of float RGB channels on the uint8 grid; the gains
+    broadcast against the channels. `hue_rgb`, when given, are the
+    channels the hue is read from (see plain_augment_batch_general).
+    Returns (r, g, b)."""
+    v = torch.maximum(torch.maximum(r, g), b)
+    diff = v - torch.minimum(torch.minimum(r, g), b)
+    h_u8 = _hue(*(hue_rgb if hue_rgb is not None else (r, g, b)))
     s_u8 = torch.round(torch.where(v > 0, 255.0 * diff / torch.clamp(v, min=1.0),
                                    0.0))
     v_u8 = v                                                 # already on the grid
@@ -127,11 +135,14 @@ def hsv_jitter_device(img, gains):
     return torch.round(torch.stack(out, -1))
 
 
-def _finish(imgs, params):
+def _finish(imgs, params, hue_imgs=None):
     """HSV and flips on (B, 3, S, S) f32 grid values -> (B, S, S, 3)
-    uint8, the common tail of every program."""
+    uint8, the common tail of every program; the hue is read from
+    `hue_imgs` when given."""
     gains = params["hsv_gains"].float()[:, :, None, None]
-    imgs = torch.round(torch.stack(_hsv(*imgs.unbind(1), *gains.unbind(1)), 1))
+    hue_rgb = None if hue_imgs is None else hue_imgs.unbind(1)
+    imgs = torch.round(torch.stack(
+        _hsv(*imgs.unbind(1), *gains.unbind(1), hue_rgb=hue_rgb), 1))
     flip_ud = params["flip_ud"].bool()[:, None, None, None]
     flip_lr = params["flip_lr"].bool()[:, None, None, None]
     imgs = torch.where(flip_ud, imgs.flip(2), imgs)
@@ -191,19 +202,19 @@ def plain_augment_batch(staged, hw, params, out_size: int = 640):
     return _finish(torch.round(imgs), params)
 
 
-def _bilinear_gather(srcs, sx, sy, lo_x, hi_x, lo_y, hi_y):
+def _bilinear_gather(srcs, sx, sy, lo_x, hi_x, lo_y, hi_y, x0, y0):
     """Bilinear samples of srcs (N, St, St, 3) at float coordinates sx,
     sy (N, S, S) with a validity window [lo, hi) per axis ((N, 1, 1)
     each): the gather counterpart of the masked-tap resample, for
     rotation and shear. Corner taps outside the window contribute 0
-    (cv2.warpAffine's constant-0 border over the canvas). Returns
-    (N, S, S, 3) f32."""
+    (cv2.warpAffine's constant-0 border over the canvas). x0, y0 are
+    the taps' top-left corners, floor of the coordinates as the caller
+    rounds them (_mosaic_affine_general). Returns (N, S, S, 3) f32."""
     n, st = srcs.shape[:2]
-    x0, y0 = torch.floor(sx), torch.floor(sy)
     wx, wy = sx - x0, sy - y0
     flat = srcs.reshape(n * st * st, srcs.shape[-1])
     base = (torch.arange(n, device=srcs.device) * (st * st))[:, None, None]
-    out = 0.0
+    taps = []
     for dy in (0, 1):
         for dx in (0, 1):
             xi, yi = x0 + dx, y0 + dy
@@ -212,36 +223,57 @@ def _bilinear_gather(srcs, sx, sy, lo_x, hi_x, lo_y, hi_y):
             xc = xi.clamp(0, st - 1).long()
             yc = yi.clamp(0, st - 1).long()
             vals = flat[(base + yc * st + xc).reshape(-1)].view(*sx.shape, -1)
-            out = fma(w[..., None], vals.float(), out)
-            del vals
-    return out
+            taps.append((w[..., None], vals.float()))
+    # the sum as XLA's CPU compiler emits it: LLVM contracts the first
+    # operand of (w00·v00 + w01·v01) into the FMA, then each further
+    # product into the running sum
+    (w00, v00), (w01, v01), (w10, v10), (w11, v11) = taps
+    return fma(w11, v11, fma(w10, v10, fma(w00, v00, w01 * v01)))
+
+
+def _canvas_coords(minv, out_size: int, contracted: bool):
+    """(xs, ys), each (B, S, S): the canvas coordinate Minv @ (j, i, 1)
+    of every output pixel, m·j + m'·i + m''. `contracted` rounds it as
+    the JAX program's gather fusion does, where the product with j and
+    the first sum share a loop body and LLVM fuses them into one FMA;
+    otherwise as its floor fusions do, where the product with j is
+    hoisted out of the loop and every operation rounds."""
+    j = torch.arange(out_size, dtype=torch.float32, device=minv.device)[None, None, :]
+    i = torch.arange(out_size, dtype=torch.float32, device=minv.device)[None, :, None]
+    m = minv.float()[:, :, :, None, None]
+    if contracted:
+        return tuple(fma(m[:, r, 0], j, m[:, r, 1] * i) + m[:, r, 2]
+                     for r in (0, 1))
+    return tuple(m[:, r, 0] * j + m[:, r, 1] * i + m[:, r, 2] for r in (0, 1))
 
 
 def _mosaic_affine_general(srcs, minv, shift_x, shift_y, lo_x, hi_x, lo_y,
-                           hi_y, out_size: int):
+                           hi_y, out_size: int, weights: str = "contracted",
+                           corners: str = "contracted"):
     """General-affine compose (degrees or shear != 0): each output
     pixel's canvas coordinate is Minv @ (x_out, y_out, 1), and quadrant k
     samples its source at canvas - shift_k within its crop window.
-    srcs (B, Q, St, St, 3); minv (B, 2, 3); shift/lo/hi (B, Q). Returns
-    (B, 3, S, S) f32 in [0, 255]."""
+    srcs (B, Q, St, St, 3); minv (B, 2, 3); shift/lo/hi (B, Q).
+    `weights` and `corners` ("contracted" or "rounded", _canvas_coords)
+    say how the coordinates behind the tap weights and behind the taps'
+    floor corners are rounded. Returns (B, 3, S, S) f32 in [0, 255]."""
     b, q, st = srcs.shape[:3]
     s = out_size
-    dev = srcs.device
-    j = torch.arange(s, dtype=torch.float32, device=dev)[None, None, :]
-    i = torch.arange(s, dtype=torch.float32, device=dev)[None, :, None]
-    m = minv.float()[:, :, :, None, None]
-    xs = fma(m[:, 0, 0], j, m[:, 0, 1] * i) + m[:, 0, 2]       # (B, S, S)
-    ys = fma(m[:, 1, 0], j, m[:, 1, 1] * i) + m[:, 1, 2]
+    coords = {form: _canvas_coords(minv, s, form == "contracted")
+              for form in {weights, corners}}
 
     def per_quadrant(v):
         return v.reshape(b * q, 1, 1)
 
+    def sample(v, shift):                                   # -> (B*Q, S, S)
+        return (v[:, None] - shift[:, :, None, None]).reshape(b * q, s, s)
+
+    (xs, ys), (xc, yc) = coords[weights], coords[corners]
     parts = _bilinear_gather(
-        srcs.reshape(b * q, st, st, 3),
-        (xs[:, None] - shift_x[:, :, None, None]).reshape(b * q, s, s),
-        (ys[:, None] - shift_y[:, :, None, None]).reshape(b * q, s, s),
-        per_quadrant(lo_x), per_quadrant(hi_x), per_quadrant(lo_y),
-        per_quadrant(hi_y))
+        srcs.reshape(b * q, st, st, 3), sample(xs, shift_x),
+        sample(ys, shift_y), per_quadrant(lo_x), per_quadrant(hi_x),
+        per_quadrant(lo_y), per_quadrant(hi_y),
+        torch.floor(sample(xc, shift_x)), torch.floor(sample(yc, shift_y)))
     imgs = parts.view(b, q, s, s, 3).sum(1).clamp_(0.0, 255.0)
     return imgs.permute(0, 3, 1, 2)
 
@@ -279,6 +311,15 @@ def plain_augment_batch_general(staged, hw, params, out_size: int = 640):
                                allow_upscale=True)
     z = torch.zeros((len(boxed), 1), dtype=torch.float32, device=boxed.device)
     f = torch.full_like(z, float(out_size))
-    imgs = _mosaic_affine_general(boxed[:, None], params["minv"], z, z, z, f,
-                                  z, f, out_size)
-    return _finish(torch.round(imgs), params)
+    args = (boxed[:, None], params["minv"], z, z, z, f, z, f, out_size)
+    # XLA's CPU compiler computes this program's compose twice, in two
+    # fusions that round the canvas coordinates differently: the one the
+    # hue reads takes its tap weights from FMA-contracted coordinates and
+    # its floor corners from rounded ones; the one that gives value,
+    # saturation and the output rounds every coordinate. Bit equality
+    # with the JAX program takes both.
+    imgs = torch.round(_mosaic_affine_general(*args, weights="rounded",
+                                              corners="rounded"))
+    hue = torch.round(_mosaic_affine_general(*args, weights="contracted",
+                                             corners="rounded"))
+    return _finish(imgs, params, hue_imgs=hue)

@@ -14,32 +14,14 @@ A bilinear resize is separable, so it is two batched products with
 per-image tap matrices, out = R_y · img · R_xᵀ; each row of R holds the
 two taps of one output coordinate, and the rows of the pad region are
 zero. As in the JAX package, taps and pixels are bf16 values, the
-products accumulate in f32 and the intermediate is rounded to bf16. The
-port multiplies these bf16 values in f32 (TF32 on the card, which holds
-a bf16 value exactly): a bf16 product would round its output to bf16,
-and `round()` of that output would differ from the JAX package's.
+products accumulate in f32 and the intermediate is rounded to bf16.
+Each output is a sum of at most two nonzero products, so every way of
+computing it that keeps an f32 result gives the same bits
+(`batched_products`).
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
-
-
-@contextlib.contextmanager
-def tf32_products(device: torch.device):
-    """TF32 for f32 matrix products on the card, for the duration. The
-    operands of the resize products hold bf16 values, which TF32
-    represents exactly, so the products equal f32's at tensor-core rate."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def fma(a, b, c):
@@ -64,6 +46,24 @@ def scatter_taps(out_size: int, src_size: int, taps) -> torch.Tensor:
     return m
 
 
+def batched_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b per batch with an f32 result, for operands that hold bf16
+    values (uint8 pixels, bf16 taps or intermediates) where every row of
+    the tap operand has at most two nonzero entries.
+
+    Each product of two bf16 values has at most 16 significant bits, so
+    it is exact in f32; each output is then a·b + c·d plus zeros, which
+    f32 accumulation rounds once whatever the order, tiling or split of
+    the sum. bf16 operands with an f32 result, TF32 and full f32 thus
+    all give the same bits. On the card the operands go in as bf16 to
+    the tensor cores (`aten::bmm.dtype`), with no global precision flag
+    touched; on the CPU the product is f32."""
+    if a.device.type == "cuda":
+        return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                         out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def separable_resample(ry: torch.Tensor, x: torch.Tensor,
                        rx: torch.Tensor) -> torch.Tensor:
     """R_y · x · R_xᵀ per image: ry (N, S, Hs), x (N, Hs, Ws, 3) with
@@ -71,11 +71,10 @@ def separable_resample(ry: torch.Tensor, x: torch.Tensor,
     f32, the intermediate rounded to bf16 as in the JAX package."""
     n, hs, ws, _ = x.shape
     s = ry.shape[1]
-    with tf32_products(x.device):
-        y = torch.bmm(ry, x.reshape(n, hs, ws * 3).float())      # (N, S, Ws*3)
-        y = (y.view(n, s, ws, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
-             .to(torch.float32, memory_format=torch.contiguous_format))
-        out = torch.bmm(y.view(n, 3 * s, ws), rx.transpose(1, 2))
+    y = batched_products(ry, x.reshape(n, hs, ws * 3))          # (N, S, Ws*3)
+    y = (y.view(n, s, ws, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+         .contiguous())
+    out = batched_products(y.view(n, 3 * s, ws), rx.transpose(1, 2))
     return out.view(n, 3, s, rx.shape[1])
 
 

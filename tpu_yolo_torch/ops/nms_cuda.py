@@ -2,9 +2,11 @@
 its plain PyTorch version.
 
 Replaces the TPU kernel `tpu_yolo/ops/nms_pallas.py::greedy_keep_pallas`.
-`greedy_keep` is the wrapper: it checks its inputs, runs the plain
-version for CPU tensors and the kernel for CUDA tensors, and counts its
-kernel launches in `greedy_keep.launches`.
+The kernel is the custom op `torch.ops.tpu_yolo_torch.nms_greedy_keep`:
+the plain version on CPU tensors, the kernel on CUDA tensors, and a fake
+implementation for `torch.export` (importing this module registers it).
+`greedy_keep` is the wrapper: it checks its inputs, calls the op and
+counts the kernel's launches in `greedy_keep.launches`.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ def greedy_keep_plain(cand_boxes, cls_idx, valid, iou_thres: float):
     tri = torch.ones(k, k, dtype=torch.bool, device=cand_boxes.device).triu(1)
     mask = (pair_iou_mask(cand_boxes, cls_idx, cand_boxes, cls_idx, iou_thres)
             & tri & valid[:, :, None]).float()
-    keep = valid
+    keep = valid.clone()
     for _ in range(k):
         # any(mask & keep) as a 0/1 product: exact in f32 for K < 2^24
         suppressed = torch.bmm(keep.float()[:, None, :], mask)[:, 0] > 0
@@ -70,10 +72,41 @@ def build() -> str:
     return cuda_build.build("nms_keep", _FLAGS)[1]
 
 
+@torch.library.custom_op("tpu_yolo_torch::nms_greedy_keep", mutates_args=(),
+                         device_types="cpu")
+def nms_greedy_keep(cand_boxes: torch.Tensor, cls_idx: torch.Tensor,
+                    valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return greedy_keep_plain(cand_boxes, cls_idx, valid, iou_thres)
+
+
+@nms_greedy_keep.register_kernel("cuda")
+def _nms_greedy_keep_cuda(cand_boxes, cls_idx, valid, iou_thres):
+    if cand_boxes.data_ptr() % 16:
+        raise ValueError("greedy_keep: boxes not 16-byte aligned")
+    b, k, _ = cand_boxes.shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=cand_boxes.device)
+    with torch.cuda.device(cand_boxes.device):
+        err = _library().nms_greedy_keep(
+            cand_boxes.data_ptr(), cls_idx.data_ptr(), valid.data_ptr(),
+            keep.data_ptr(), b, k, iou_thres,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "nms_greedy_keep")
+    greedy_keep.launches += 1
+    return keep
+
+
+@nms_greedy_keep.register_fake
+def _nms_greedy_keep_fake(cand_boxes, cls_idx, valid, iou_thres):
+    return torch.empty(cand_boxes.shape[:2], dtype=torch.bool,
+                       device=cand_boxes.device)
+
+
 def greedy_keep(cand_boxes, cls_idx, valid, iou_thres: float):
     """(B, K) bool keep mask of score-descending candidates: cand_boxes
     (B, K, 4) f32 xyxy, cls_idx (B, K) int32, valid (B, K) bool, all
-    contiguous, 1 <= K <= 8192. Raises on anything else."""
+    contiguous, 1 <= K <= 8192, on the CPU or a card. Raises on anything
+    else."""
     if (cand_boxes.dtype != torch.float32 or cls_idx.dtype != torch.int32
             or valid.dtype != torch.bool):
         raise TypeError(f"greedy_keep takes f32 boxes, int32 classes and "
@@ -92,21 +125,9 @@ def greedy_keep(cand_boxes, cls_idx, valid, iou_thres: float):
         raise ValueError("greedy_keep takes contiguous inputs")
     if not (cand_boxes.device == cls_idx.device == valid.device):
         raise ValueError("greedy_keep: inputs on different devices")
-    if cand_boxes.device.type == "cpu":
-        return greedy_keep_plain(cand_boxes, cls_idx, valid, iou_thres)
-    if cand_boxes.device.type != "cuda" or cand_boxes.data_ptr() % 16:
-        raise ValueError(f"greedy_keep: no kernel for {cand_boxes.device} "
-                         f"or boxes not 16-byte aligned")
-    b, k, _ = cand_boxes.shape
-    keep = torch.empty((b, k), dtype=torch.bool, device=cand_boxes.device)
-    with torch.cuda.device(cand_boxes.device):
-        err = _library().nms_greedy_keep(
-            cand_boxes.data_ptr(), cls_idx.data_ptr(), valid.data_ptr(),
-            keep.data_ptr(), b, k, iou_thres,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "nms_greedy_keep")
-    greedy_keep.launches += 1
-    return keep
+    if cand_boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"greedy_keep: no kernel for {cand_boxes.device}")
+    return nms_greedy_keep(cand_boxes, cls_idx, valid, iou_thres)
 
 
 greedy_keep.launches = 0

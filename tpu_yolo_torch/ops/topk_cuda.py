@@ -2,10 +2,13 @@
 (csrc/topk_mask.cu) and its plain PyTorch version.
 
 Replaces the TPU kernel `tpu_yolo/ops/topk_pallas.py::topk_mask`.
-`topk_mask` is the wrapper: it checks its input, runs the plain version
-for a CPU tensor and the kernel for a CUDA tensor, and counts its kernel
-launches in `topk_mask.launches`. Only comparisons touch the values, so
-kernel and plain version agree bit for bit. NaN is out of contract.
+The kernel is the custom op `torch.ops.tpu_yolo_torch.topk_mask`: the
+plain version on a CPU tensor, the kernel on a CUDA tensor, and a fake
+implementation for `torch.export` (importing this module registers it).
+`topk_mask` is the wrapper: it checks its input, calls the op and counts
+the kernel's launches in `topk_mask.launches`. Only comparisons touch
+the values, so kernel and plain version agree bit for bit. NaN is out of
+contract.
 """
 from __future__ import annotations
 
@@ -48,6 +51,35 @@ def build() -> str:
     return cuda_build.build("topk_mask")[1]
 
 
+@torch.library.custom_op("tpu_yolo_torch::topk_mask", mutates_args=(),
+                         device_types="cpu")
+def topk_mask_op(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    return topk_mask_plain(x, k)
+
+
+@topk_mask_op.register_kernel("cuda")
+def _topk_mask_cuda(x, k):
+    if x.data_ptr() % 16:
+        raise ValueError("topk_mask: input not 16-byte aligned")
+    b, n, a = x.shape
+    out = torch.empty((b, n, a), dtype=torch.bool, device=x.device)
+    if b * n == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _library().topk_mask(
+            x.data_ptr(), out.data_ptr(), b * n, a, k,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.check(err, "topk_mask")
+    topk_mask.launches += 1
+    return out
+
+
+@topk_mask_op.register_fake
+def _topk_mask_fake(x, k):
+    return torch.empty(x.shape, dtype=torch.bool, device=x.device)
+
+
 def topk_mask(x, k: int):
     """(B, N, A) bool mask of the k largest entries of each row of a
     contiguous (B, N, A) f32 tensor, ties to the lower index. On the card
@@ -60,27 +92,15 @@ def topk_mask(x, k: int):
                          f"k >= 1, got {tuple(x.shape)}, k={k}")
     if not x.is_contiguous():
         raise ValueError("topk_mask takes a contiguous tensor")
-    if x.device.type == "cpu":
-        return topk_mask_plain(x, k)
-    if x.device.type != "cuda" or x.data_ptr() % 16:
-        raise ValueError(f"topk_mask: no kernel for {x.device} or input "
-                         f"not 16-byte aligned")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_mask: no kernel for {x.device}")
     b, n, a = x.shape
-    if a > MAX_A or k > MAX_K or b * n >= 2 ** 31:
+    if x.device.type == "cuda" and (a > MAX_A or k > MAX_K or b * n >= 2 ** 31):
         raise ValueError(
             f"topk_mask: the kernel takes rows of at most {MAX_A} entries "
             f"({MAX_A * 4} bytes of shared memory), k <= {MAX_K} and fewer "
             f"than 2^31 rows, got A={a}, k={k}, rows={b * n}")
-    out = torch.empty((b, n, a), dtype=torch.bool, device=x.device)
-    if b * n == 0:
-        return out
-    with torch.cuda.device(x.device):
-        err = _library().topk_mask(
-            x.data_ptr(), out.data_ptr(), b * n, a, k,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check(err, "topk_mask")
-    topk_mask.launches += 1
-    return out
+    return topk_mask_op(x, k)
 
 
 topk_mask.launches = 0

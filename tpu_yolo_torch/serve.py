@@ -15,22 +15,32 @@
 
 Boxes are returned in original-image pixel coordinates by inverting the
 letterbox transform ((xy - pad) / ratio), clipped to the image.
+
+A saved serving program (`save_compiled` / `load_compiled`) is the device
+program exported by `torch.export` at a fixed batch, with the weights as
+its inputs: it runs without tracing the Python model again, and the
+three kernels appear in it as the custom ops of ops/*_cuda.py.
 """
 from __future__ import annotations
 
+import dataclasses
+import io
+import json
 import os
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
-from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.core.config import ModelConfig, get_model_config
 from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.models.yolov11 import YOLO
+from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.letterbox import letterbox_batch
 
-_DECODE_THREADS = 8
+EXPORT_FORMAT = "tpu_yolo_torch-export-v1"
 
 
 def _device(device) -> torch.device:
@@ -68,7 +78,7 @@ class Detector:
                  ranking: str = "approx", max_nms: int | None = None,
                  multi_label: bool | None = None, latency_mode: bool = False,
                  device_letterbox: bool = False, stage_size: int = 960,
-                 device="cuda"):
+                 decode_threads: int = 8, device="cuda"):
         """The Detector takes `model` over: it folds its BatchNorm and
         moves it to `device` and `compute_dtype` in place.
 
@@ -85,6 +95,7 @@ class Detector:
         longer than stage_size are pre-shrunk on the host to fit, and that
         ratio is folded into the returned boxes per axis. `stager` then
         says which decoder staged them ("native" or "cv2").
+        `decode_threads`: host threads that decode (and stage) images.
         `device`: "cuda" (default) or "cpu"; raises without a card unless
         the CPU is asked for."""
         if max_nms is None:
@@ -97,13 +108,22 @@ class Detector:
         self.compute_dtype = compute_dtype
         self.device_letterbox = device_letterbox
         self.stage_size = stage_size
+        self.decode_threads = decode_threads
         self._stager = None  # the staging pipeline, made at first use
+        self._fixed_batch = None  # set by load_compiled
         self.model = model.fold_batchnorm().to(
             device=self.device, dtype=compute_dtype,
             memory_format=torch.channels_last).eval()
         self._nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                          max_det=max_det, ranking=ranking, max_nms=max_nms,
                          multi_label=multi_label)
+        # the construction knobs, as save_compiled records them
+        self._knobs = dict(
+            input_size=input_size, conf_thres=conf_thres, iou_thres=iou_thres,
+            max_det=max_det, compute_dtype=str(compute_dtype).split(".")[-1],
+            ranking=ranking, max_nms=max_nms, multi_label=multi_label,
+            latency_mode=latency_mode, device_letterbox=device_letterbox,
+            stage_size=stage_size, decode_threads=decode_threads)
 
     @classmethod
     def from_checkpoint(cls, path: str, size: str = "n", num_classes: int = 80,
@@ -138,7 +158,7 @@ class Detector:
             # and the letterbox ratio into one original->net scale
             metas[i] = (ratio[0] * img.shape[1] / w, pad[0], pad[1], w, h)
 
-        with ThreadPoolExecutor(_DECODE_THREADS) as pool:
+        with ThreadPoolExecutor(self.decode_threads) as pool:
             list(pool.map(decode, range(len(paths))))
         return metas
 
@@ -155,7 +175,7 @@ class Detector:
         that failed to decode."""
         if self._stager is None:
             self._stager = native_loader.staging_pipeline(
-                self.input_size, threads=_DECODE_THREADS)
+                self.input_size, threads=self.decode_threads)
         _, dims, _ = self._stager.load_batch_raw(paths, self.stage_size, out=out)
         return dims
 
@@ -180,36 +200,171 @@ class Detector:
         return metas
 
     # -- inference --------------------------------------------------------
-    def _predict(self, x_u8):
-        with torch.inference_mode():
-            x = x_u8.to(self.compute_dtype) / 255
-            return self.model.forward_nms(x, **self._nms)
+    def _program(self, x_u8):
+        """The serving program: uint8 (B, S, S, 3) -> /255 in the compute
+        dtype -> forward -> NMS."""
+        x = x_u8.to(self.compute_dtype) / 255
+        return self.model.forward_nms(x, **self._nms)
 
-    def _predict_staged(self, staged_u8, hw):
+    def _program_staged(self, staged_u8, hw):
         """The device-letterbox program: raw staged uint8 (B, St, St, 3)
         and true sizes (B, 2) -> letterbox (the single-resize serving
         geometry) -> /255 -> forward -> NMS."""
+        boxed, _ = letterbox_batch(staged_u8, hw, out_size=self.input_size,
+                                   allow_upscale=True)
+        return self._program(boxed)
+
+    def _predict(self, x_u8):
         with torch.inference_mode():
-            boxed, _ = letterbox_batch(staged_u8, hw, out_size=self.input_size,
-                                       allow_upscale=True)
-            x = boxed.to(self.compute_dtype) / 255
-            return self.model.forward_nms(x, **self._nms)
+            return self._program(x_u8)
+
+    def _predict_staged(self, staged_u8, hw):
+        with torch.inference_mode():
+            return self._program_staged(staged_u8, hw)
 
     def detect_batch(self, images_u8):
         """(B, S, S, 3) uint8 RGB (numpy or torch) -> result dict of
-        tensors on the device, in letterbox coordinates."""
+        tensors on the device, in letterbox coordinates. A Detector from
+        `load_compiled` takes its artifact's batch size only."""
         x = torch.as_tensor(images_u8)
         if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"detect_batch expects (B, S, S, 3) uint8, got "
                              f"{tuple(x.shape)} {x.dtype}")
+        if self._fixed_batch is not None and len(x) != self._fixed_batch:
+            raise ValueError(
+                f"this Detector runs a saved program exported for "
+                f"batch_size={self._fixed_batch}; got a batch of {len(x)} "
+                f"(pad it, or save_compiled at this size)")
         return self._predict(x.to(self.device, non_blocking=True))
+
+    # -- saved serving program --------------------------------------------
+    def _weights_spec(self) -> dict:
+        """key -> [shape, dtype, memory format] of the folded weights as
+        the program takes them, in the program's input order."""
+        return {k: [list(t.shape), str(t.dtype).split(".")[-1],
+                    "channels_last" if t.dim() == 4 and t.is_contiguous(
+                        memory_format=torch.channels_last) else "contiguous"]
+                for k, t in self.model.state_dict().items()}
+
+    def _example_inputs(self, batch_size: int):
+        if self.device_letterbox:
+            st = self.stage_size
+            return (torch.zeros((batch_size, st, st, 3), dtype=torch.uint8,
+                                device=self.device),
+                    torch.ones((batch_size, 2), dtype=torch.float32,
+                               device=self.device))
+        s = self.input_size
+        return (torch.zeros((batch_size, s, s, 3), dtype=torch.uint8,
+                            device=self.device),)
+
+    def save_compiled(self, path: str, batch_size: int) -> str:
+        """Export the serving program at a fixed batch with `torch.export`
+        and write it to `path`, with the Detector's configuration.
+
+        The program is the plain one (uint8 (B, S, S, 3) -> detections)
+        or, with device_letterbox, the staged one (uint8 (B, St, St, 3)
+        and f32 (B, 2) sizes), on this Detector's device, in its compute
+        dtype and memory format. The weights are inputs of the program
+        and stay outside the file: one artifact serves every fine-tune of
+        the architecture. The file is a zip of `meta.json` (format tag,
+        staged flag, batch, model config, construction knobs, the
+        weights' spec and the torch/CUDA/device environment) and
+        `program.pt2` (`torch.export.save`). It runs only where it was
+        made: `load_compiled` checks the environment."""
+        spec = self._weights_spec()
+        program = _WeightsAsInputs(self, list(spec))
+        weights = tuple(self.model.state_dict().values())
+        # the anchor grid is a constant of the program: made here, outside
+        # the trace, so the cache never holds a traced tensor (keyed by the
+        # device as tensors carry it, "cuda:0" and not "cuda")
+        device_anchors((self.input_size, self.input_size), tuple(self.cfg.strides),
+                       torch.empty(0, device=self.device).device)
+        exported = torch.export.export(
+            program, (weights, *self._example_inputs(batch_size)), strict=False)
+        exported.example_inputs = None  # they hold the weights
+        buf = io.BytesIO()
+        torch.export.save(exported, buf)
+        meta = {"format": EXPORT_FORMAT, "staged": bool(self.device_letterbox),
+                "batch_size": int(batch_size),
+                "cfg": dataclasses.asdict(self.cfg), "knobs": dict(self._knobs),
+                "weights": spec, **_environment(self.device)}
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("meta.json", json.dumps(meta, indent=1))
+            z.writestr("program.pt2", buf.getvalue())
+        return path
+
+    @classmethod
+    def load_compiled(cls, path: str, params) -> "Detector":
+        """A Detector that runs the program a `save_compiled` artifact
+        holds, with `params`: a folded state dict, or a YOLO (folded in
+        place and taken over, as the constructor does).
+
+        Before the program runs it raises ValueError on a file of another
+        format, RuntimeError naming the key where the platform, device
+        name or torch/CUDA version differ from the artifact's, and
+        ValueError naming the first weight whose key or shape differs
+        from the artifact's spec. The Detector is locked to the
+        artifact's batch: detect_batch refuses another one and `stream`
+        takes it whatever its batch_size argument."""
+        try:
+            archive = zipfile.ZipFile(path)
+        except zipfile.BadZipFile as e:
+            raise ValueError(f"{path}: not a {EXPORT_FORMAT} artifact") from e
+        with archive as z:
+            meta = (json.loads(z.read("meta.json"))
+                    if "meta.json" in z.namelist() else {})
+            if meta.get("format") != EXPORT_FORMAT:
+                raise ValueError(f"{path}: not a {EXPORT_FORMAT} artifact")
+            device = torch.device(meta["platform"])
+            have = (_environment(device) if device.type == "cpu"
+                    or torch.cuda.is_available() else {"platform": "cpu"})
+            for key in ("platform", "device_name", "torch_version",
+                        "cuda_version"):
+                if meta[key] != have[key]:
+                    raise RuntimeError(
+                        f"{path} was exported for {key}={meta[key]!r} but "
+                        f"this process has {have[key]!r}: save_compiled it "
+                        f"again in this environment")
+            program_bytes = z.read("program.pt2")
+        if isinstance(params, YOLO):
+            params = params.fold_batchnorm().state_dict()
+        want = meta["weights"]
+        for key in list(want) + [k for k in params if k not in want]:
+            got = list(params[key].shape) if key in params else None
+            if key not in want or got != want[key][0]:
+                raise ValueError(
+                    f"weights do not match the artifact's architecture: "
+                    f"first difference at {key!r}: artifact "
+                    f"{want.get(key, [None])[0]} vs given {got}")
+        c = meta["cfg"]
+        cfg = ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                             for k, v in c.items()})
+        knobs = dict(meta["knobs"])
+        knobs["compute_dtype"] = getattr(torch, knobs["compute_dtype"])
+        det = cls(YOLO.from_state_dict(cfg, params), device=device, **knobs)
+        if list(det._weights_spec().items()) != list(want.items()):
+            raise ValueError("weights do not match the artifact's spec after "
+                             "conversion to its dtype and memory format")
+        weights = tuple(det.model.state_dict().values())
+        program = torch.export.load(io.BytesIO(program_bytes)).module()
+
+        def run(*inputs):
+            with torch.inference_mode():
+                return program(weights, *inputs)
+
+        if meta["staged"]:
+            det._predict_staged = run
+        else:
+            det._predict = run
+        det._fixed_batch = meta["batch_size"]
+        return det
 
     def detect_one(self, image, rescale: bool = True) -> dict:
         """Single-image detection. `image` is a path or an (H, W, 3) uint8
         RGB array; returns {path, boxes (N,4) xyxy (original pixels when
         `rescale`), scores, classes}."""
         s = self.input_size
-        imgs = np.zeros((1, s, s, 3), np.uint8)
+        imgs = np.zeros((self._fixed_batch or 1, s, s, 3), np.uint8)
         if isinstance(image, (str, os.PathLike)):
             path = os.fspath(image)
             metas = self._decode_batch([path], imgs)
@@ -242,7 +397,11 @@ class Detector:
         image: {path, boxes (N,4) xyxy original pixels, scores, classes}.
         With device_letterbox the buffers hold (batch_size, stage_size,
         stage_size, 3) raw pixels and (batch_size, 2) true sizes; a
-        partial last batch is padded with zero pixels of size 1 x 1."""
+        partial last batch is padded with zero pixels of size 1 x 1. A
+        Detector from `load_compiled` streams at its artifact's batch size
+        whatever `batch_size` says."""
+        if self._fixed_batch is not None:
+            batch_size = self._fixed_batch
         paths = list(paths)
         staged = self.device_letterbox
         s = self.stage_size if staged else self.input_size
@@ -300,3 +459,42 @@ class Detector:
             yield {"path": path, "boxes": boxes,
                    "scores": np.array(res["scores"][i][:n], np.float32),
                    "classes": np.array(res["classes"][i][:n], np.int32)}
+
+
+def _environment(device: torch.device) -> dict:
+    """What a saved program is bound to: the platform, the device's name,
+    torch's and CUDA's versions."""
+    return {"platform": device.type,
+            "device_name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu"),
+            "torch_version": torch.__version__,
+            "cuda_version": torch.version.cuda}
+
+
+class _ServingProgram(torch.nn.Module):
+    """A Detector's serving program as a module over its model."""
+
+    def __init__(self, det: Detector):
+        super().__init__()
+        self.model = det.model
+        self._body = det._program_staged if det.device_letterbox else det._program
+
+    def forward(self, *inputs):
+        return self._body(*inputs)
+
+
+class _WeightsAsInputs(torch.nn.Module):
+    """A Detector's serving program with the folded weights as its first
+    input (a tuple in `keys` order), for torch.export: the program is
+    held outside the module tree, so the export lifts no parameter, and
+    `functional_call` runs it with the given tensors in place of the
+    model's own."""
+
+    def __init__(self, det: Detector, keys: list[str]):
+        super().__init__()
+        self._program = (_ServingProgram(det),)
+        self._keys = ["model." + k for k in keys]
+
+    def forward(self, weights, *inputs):
+        return torch.func.functional_call(
+            self._program[0], dict(zip(self._keys, weights)), inputs)
