@@ -24,7 +24,16 @@ staged program at batch 128, each loaded by `Detector.load_compiled` in a
 fresh process that imports only the package, its detections bit-equal to
 the live Detector's and both kernels counted there, beside a fresh live
 Detector's first batch and rate; and one timing row of the forward with
-the space-to-depth stem beside the plain stem. The kernels are custom ops
+the space-to-depth stem beside the plain stem. Then int8 serving (phase
+p): the serving Detector quantized on 16 seeded JPEGs, every int8 conv's
+int32 sums on the card equal to the CPU's, both kernels counted, f32
+int8 results card against CPU conv by conv and as detections, the int8
+program loaded in a fresh process bit-equal to the live Detector, `detect
+--int8`, and int8 timed beside bf16; and the profile and the export
+(phase q): v11-n's FLOPs against the port's analytic count, a trace of
+three serving batches naming both kernels, one symbolic-batch export run
+at batches 1, 8 and 128 against the live forward, `--profile` and
+`--export` through the CLI. The kernels are custom ops
 (`torch.ops.tpu_yolo_torch.*`), so every launch goes through the
 dispatcher. Each phase prints one JSON line; the line before the last
 lists the kernels
@@ -94,6 +103,20 @@ ARTIFACT_BATCHES = 10  # phase o: timed batches per process
 # phase k's time at (128, 960 -> 640) when the products ran in TF32 (H100)
 TF32_LETTERBOX_MS = (8.69, 8.77)
 DA_IMAGES = 256      # phase n: the seeded mini-COCO, 4 steps an epoch
+INT8_CALIB_FILES = 16  # phase p: the seeded JPEGs Detector.quantize calibrates on
+INT8_SUMS_IMAGES = 8   # phase p: images of the int8 sums check, card vs CPU
+INT8_DETECT_FILES = 8  # phase p: JPEGs of `detect --int8`
+# phase p, f32 int8 card vs CPU. Conv by conv, fed the same input, only
+# the float work around the exact sums differs (SiLU's exp rounds apart):
+# a few f32 roundings. Whole forwards then quantize some inputs a step
+# apart, and random weights amplify each step: 0.506 of one image's
+# detections matched both ways on the H100 (the other's all), hence
+INT8_LAYER_TOL = 1e-5
+INT8_F32_MATCH = 0.45
+EXPORT_BATCHES = (1, 8, 128)  # phase q: batches run through one symbolic export
+# phase q: the ops and the kernels a trace of serving batches must name
+TRACE_NAMES = ("tpu_yolo_torch::psa_attention", "tpu_yolo_torch::nms_greedy_keep",
+               "attention_bf16_kernel", "nms_keep_kernel")
 PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
 
 
@@ -429,6 +452,10 @@ def main() -> int:
     # forward with the space-to-depth stem beside the plain stem
     _serve_artifact_phase(cfg, smi, state, imgs, launches)
     _s2d_stem_row(cfg, smi, state, imgs)
+
+    # (p) int8 W8A8 serving; (q) the profile and the export
+    _int8_phase(cfg, smi, state, imgs, launches)
+    _profile_export_phase(cfg, smi, state, imgs, launches)
 
     # (n) the trainer with --device-augment beside the host loader
     _train_device_augment_phase(cfg, smi, launches)
@@ -1128,6 +1155,446 @@ def _s2d_stem_row(cfg, smi, state, imgs):
          raw_max_abs_diff=diff, raw_max_abs=scale)
 
 
+_INT8_CHILD = r"""
+import json, sys, time
+
+import numpy as np
+import torch
+
+from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+from tpu_yolo_torch.serve import Detector
+
+tmp = sys.argv[1]
+imgs = np.load(tmp + "/images.npy")
+t0 = time.perf_counter()
+det = Detector.load_compiled(tmp + "/int8.pt2z", torch.load(tmp + "/int8_weights.pt"))
+out = {"load_s": time.perf_counter() - t0}
+attention_cuda.fused_attention.launches = 0
+nms_cuda.greedy_keep.launches = 0
+res = {k: v.cpu().numpy() for k, v in det.detect_batch(imgs).items()}
+out["launches"] = {"attention": attention_cuda.fused_attention.launches,
+                   "nms": nms_cuda.greedy_keep.launches}
+try:
+    Detector.load_compiled(tmp + "/int8.pt2z", torch.load(tmp + "/float_weights.pt"))
+    out["float_weights"] = "not refused"
+except ValueError as e:
+    out["float_weights"] = str(e)
+np.savez(tmp + "/loaded_int8.npz", **res)
+out["jax_imported"] = "jax" in sys.modules
+print(json.dumps(out))
+"""
+
+
+def _int8_sums_check(model, x):
+    """Runs model.forward_raw(x) with a hook on every int8 conv that
+    computes its int32 sums on the card and in the CPU's exact form from
+    the same quantized input; returns (convs, convs equal, values)."""
+    import torch
+
+    from tpu_yolo_torch.ops.nn import ConvBN, int8_conv2d
+
+    seen = []
+
+    def hook(m, args):
+        xq = m.quantize_input(args[0])
+        conv = (m.stride, m.padding, m.groups)
+        card = int8_conv2d(xq, m.w_q, *conv).cpu()
+        seen.append((torch.equal(card, int8_conv2d(xq.cpu(), m.w_q.cpu(), *conv)),
+                     card.numel()))
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, ConvBN) and m.quantized]
+    try:
+        with torch.inference_mode():
+            model.forward_raw(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return len(seen), sum(ok for ok, _ in seen), sum(n for _, n in seen)
+
+
+def _int8_f32_layers(card_model, cpu_model, x):
+    """The f32 int8 forward on the card against the CPU, conv by conv, on
+    the CPU images x (NHWC f32). Fed the CPU run's input, each int8 conv
+    on the card against the CPU's output (the largest difference over the
+    output's largest value): the sums are exact and the quantized inputs
+    equal, so only the float work around them (the dequantize, SiLU) can
+    differ. Then each device's own forward: the quantized inputs of every
+    conv counted where they differ (an input a rounding apart at a .5
+    boundary quantizes to the neighbouring integer)."""
+    import torch
+
+    from tpu_yolo_torch.ops.nn import ConvBN
+
+    def run(model, xx, keep_io):
+        io, xq = {}, {}
+
+        def pre(name):
+            def hook(m, args):
+                xq[name] = m.quantize_input(args[0]).cpu()
+                if keep_io:
+                    io[name] = [args[0].cpu()]
+            return hook
+
+        def post(name):
+            def hook(m, args, out):
+                if keep_io:
+                    io[name].append(out.cpu())
+            return hook
+
+        handles = []
+        for name, m in model.named_modules():
+            if isinstance(m, ConvBN):
+                handles += [m.register_forward_pre_hook(pre(name)),
+                            m.register_forward_hook(post(name))]
+        try:
+            with torch.inference_mode():
+                model.forward_raw(xx)
+        finally:
+            for h in handles:
+                h.remove()
+        return io, xq
+
+    io, xq_cpu = run(cpu_model, x, True)
+    _, xq_card = run(card_model, x.cuda(), False)
+    modules = dict(card_model.named_modules())
+    worst = 0.0
+    with torch.inference_mode():
+        for name, (inp, out) in io.items():
+            got = modules[name](inp.cuda()).cpu()
+            worst = max(worst, float((got - out).abs().max() / out.abs().max()))
+    differ = {name: int((xq_card[name] != q).sum()) for name, q in xq_cpu.items()}
+    return dict(convs=len(io), teacher_forced_max_rel_err=worst,
+                xq_values=sum(q.numel() for q in xq_cpu.values()),
+                xq_differ=sum(differ.values()),
+                convs_differing=sum(1 for d in differ.values() if d),
+                first_conv_differing=next((n for n, d in differ.items() if d), None))
+
+
+def _device_breakdown(fn, top: int = 8) -> dict:
+    """Device time of one fn() call by kernel, from torch.profiler: the
+    total and the `top` kernels with their calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return dict(device_ms=sum(r[1] for r in rows),
+                kernels=[dict(name=n[:90], ms=ms, calls=c) for n, ms, c in rows[:top]])
+
+
+def _int8_phase(cfg, smi, state, imgs, launches):
+    """Phase (p): int8 W8A8 serving. The serving weights of phase e in a
+    bf16 Detector, `Detector.quantize` on 16 seeded JPEGs; the int32 sums
+    of every int8 conv on the card equal to the CPU's exact form (8
+    images); both kernels counted in the int8 `detect_batch` at bs128;
+    f32 int8 detections on the card against the CPU; the int8 program
+    saved, loaded in a fresh process and bit-equal to the live Detector,
+    float weights refused there; `detect --int8` on 8 JPEGs. Printed:
+    int8 against bf16 agreement, img/s alternated (3 pairs, inputs on the
+    card), forward ms, weight bytes, calibration seconds."""
+    import torch
+
+    from tpu_yolo_torch.io.checkpoint import save_checkpoint
+    from tpu_yolo_torch.io.weights import to_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+    from tpu_yolo_torch.ops.nn import ConvBN
+    from tpu_yolo_torch.serve import Detector
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        files = _write_jpegs(os.path.join(tmp, "jpegs"), INT8_CALIB_FILES)
+        bf16 = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+        int8 = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int8.quantize(files)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        convs = [m for m in int8.model.modules() if isinstance(m, ConvBN)]
+        check(all(m.quantized for m in convs), "a conv was left float by quantize")
+
+        x = torch.from_numpy(imgs).cuda()
+        n, equal, values = _int8_sums_check(
+            int8.model, x[:INT8_SUMS_IMAGES].to(torch.bfloat16) / 255)
+        check(n == len(convs) and equal == n,
+              f"int8 sums card vs CPU: {equal} of {n} convs equal")
+
+        int8.detect_batch(x)
+        torch.cuda.synchronize()
+        attention_cuda.fused_attention.launches = 0
+        nms_cuda.greedy_keep.launches = 0
+        res8 = int8.detect_batch(x)
+        torch.cuda.synchronize()
+        launches["int8_attention"] = attention_cuda.fused_attention.launches
+        launches["int8_nms"] = nms_cuda.greedy_keep.launches
+        check(launches["int8_attention"] > 0 and launches["int8_nms"] > 0,
+              f"kernels in the int8 detect_batch: {launches}")
+        counts = res8["count"].cpu()
+        check(all(bool(torch.isfinite(v.float()).all()) for v in res8.values())
+              and float((counts > 0).float().mean()) >= 0.9,
+              f"int8 serving output: counts {counts.tolist()}")
+        res16 = bf16.detect_batch(x)
+        vs_bf16 = [_agreement(_row(res8, i), _row(res16, i)) for i in range(4)]
+
+        rates = {"int8": [], "bf16": []}
+        for _ in range(3):
+            for key, det in (("int8", int8), ("bf16", bf16)):
+                det.detect_batch(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ARTIFACT_BATCHES):
+                    det.detect_batch(x)
+                torch.cuda.synchronize()
+                rates[key].append(BATCH * ARTIFACT_BATCHES / (time.perf_counter() - t0))
+        xb = x.to(torch.bfloat16) / 255
+        with torch.inference_mode():
+            forward_ms = {key: cuda_ms(lambda m=det.model: m.forward_raw(xb), iters=10)
+                          for key, det in (("int8", int8), ("bf16", bf16))}
+            forward_ms["int8_again"] = cuda_ms(lambda: int8.model.forward_raw(xb), iters=10)
+        weight_bytes = {key: sum(t.numel() * t.element_size()
+                                 for t in det.model.state_dict().values())
+                        for key, det in (("int8", int8), ("bf16", bf16))}
+        del xb
+
+        # f32 int8 detections, card (TF32 off) against the CPU, same
+        # weights, and the same forward conv by conv
+        qstate = {k: v.cpu() for k, v in int8.model.state_dict().items()}
+        kw = dict(input_size=SIZE, compute_dtype=torch.float32, ranking="exact")
+        on_card = Detector(YOLO.from_state_dict(cfg, qstate), device="cuda", **kw)
+        on_cpu = Detector(YOLO.from_state_dict(cfg, qstate), device="cpu", **kw)
+        cudnn_tf32 = torch.backends.cudnn.allow_tf32
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            card = on_card.detect_batch(imgs[:2])
+            layers = _int8_f32_layers(on_card.model, on_cpu.model,
+                                      torch.from_numpy(imgs[:2]).float() / 255)
+        finally:
+            torch.backends.cudnn.allow_tf32 = cudnn_tf32
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        cpu = on_cpu.detect_batch(imgs[:2])
+        f32_rows = [_agreement(_row(card, i), _row(cpu, i)) for i in range(2)]
+        del on_card, on_cpu
+        check(layers["teacher_forced_max_rel_err"] <= INT8_LAYER_TOL
+              and layers["first_conv_differing"] != "net.p1.0",
+              f"f32 int8 forward, card vs CPU conv by conv: {layers}")
+
+        # where the int8 forward's time goes, by kernel
+        with torch.inference_mode():
+            breakdown = _device_breakdown(lambda: int8.model.forward_raw(
+                x.to(torch.bfloat16) / 255))
+
+        # the int8 program, saved and loaded in a fresh process
+        t0 = time.perf_counter()
+        int8.save_compiled(os.path.join(tmp, "int8.pt2z"), batch_size=BATCH)
+        save_s = time.perf_counter() - t0
+        np.save(os.path.join(tmp, "images.npy"), imgs)
+        torch.save(qstate, os.path.join(tmp, "int8_weights.pt"))
+        torch.save({k: v.cpu() for k, v in bf16.model.state_dict().items()},
+                   os.path.join(tmp, "float_weights.pt"))
+        want = {k: v.cpu().numpy() for k, v in res8.items()}
+        del int8, bf16, x, res8, res16
+        torch.cuda.empty_cache()
+        proc = subprocess.run([sys.executable, "-c", _INT8_CHILD, tmp], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"int8 child: rc {proc.returncode}, {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(os.path.join(tmp, "loaded_int8.npz"))
+        loaded_equal = all(np.array_equal(got[k], want[k]) for k in want)
+        artifact_bytes = os.path.getsize(os.path.join(tmp, "int8.pt2z"))
+
+        # the detect entry point with --int8, in its own process
+        ckpt = os.path.join(tmp, "serving.ckpt")
+        save_checkpoint(ckpt, {"params": to_jax_params(state)})
+        out_dir = os.path.join(tmp, "annotated")
+        t0 = time.perf_counter()
+        detect = subprocess.run(
+            [sys.executable, "-m", "tpu_yolo_torch.detect", "--int8", "--weights", ckpt,
+             "--batch-size", str(INT8_DETECT_FILES), "--out", out_dir,
+             *files[:INT8_DETECT_FILES]], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        detect_s = time.perf_counter() - t0
+        check(detect.returncode == 0 and len(os.listdir(out_dir)) == INT8_DETECT_FILES,
+              f"detect --int8: rc {detect.returncode}, {detect.stderr[-2000:]}")
+    check(loaded_equal, "loaded int8 program vs live int8 Detector: detections differ")
+    check(min(child["launches"].values()) > 0 and not child["jax_imported"],
+          f"int8 child: {child}")
+    check("int8 program" in child["float_weights"],
+          f"float weights for the int8 program: {child['float_weights']}")
+    emit("int8", nvidia_smi=smi, model="v11-n", size=SIZE, batch=BATCH, dtype="bfloat16",
+         calib_files=INT8_CALIB_FILES, calibration_s=calib_s,
+         sums_check=dict(images=INT8_SUMS_IMAGES, convs=n, convs_equal=equal,
+                         int32_values=values),
+         launches_per_batch=dict(attention=launches["int8_attention"],
+                                 nms=launches["int8_nms"]),
+         count_mean=float(counts.float().mean()), int8_vs_bf16=vs_bf16,
+         img_per_s_alternated=rates, forward_raw_ms=forward_ms,
+         int8_over_bf16_forward=forward_ms["int8"] / forward_ms["bf16"],
+         weight_bytes=weight_bytes, forward_device_breakdown=breakdown,
+         f32_card_vs_cpu=f32_rows, f32_conv_by_conv=layers,
+         saved_program=dict(bytes=artifact_bytes, save_s=save_s, load_s=child["load_s"],
+                            launches=child["launches"], equal=loaded_equal,
+                            float_weights=child["float_weights"]),
+         detect=dict(files=INT8_DETECT_FILES, seconds=detect_s,
+                     lines=detect.stdout.strip().splitlines()[-1:]),
+         threshold="sums card vs CPU equal for every int8 conv; f32 int8 card vs CPU: "
+                   f"each conv fed the CPU's input within {INT8_LAYER_TOL} of its "
+                   "largest output, the stem's quantized input equal, >= "
+                   f"{INT8_F32_MATCH} of detections matched both ways (same class, "
+                   "IoU >= 0.9); loaded program bit-equal to live")
+    for agree in f32_rows:
+        check(min(agree["match"]) >= INT8_F32_MATCH, f"f32 int8 card vs CPU: {agree}")
+
+
+def _analytic_flops(model, x):
+    """FLOPs of one eval forward from the port's own modules: 2·MACs of
+    every conv from the shapes its hooks see, and the attention's two
+    products from the shapes its wrapper is called with."""
+    import torch
+
+    from tpu_yolo_torch.ops import blocks
+    from tpu_yolo_torch.ops.nn import ConvBN
+
+    flops = []
+
+    def conv_hook(m, args, out):
+        w = m.w_q if m.quantized else m.w
+        flops.append(2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3])
+
+    attn_fn = blocks.fused_attention
+
+    def attn_tap(q, k, v, scale):
+        flops.append(2 * q.shape[0] * q.shape[1] * k.shape[1] * (q.shape[2] + v.shape[2]))
+        return attn_fn(q, k, v, scale)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, ConvBN)]
+    blocks.fused_attention = attn_tap
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        blocks.fused_attention = attn_fn
+        for h in hooks:
+            h.remove()
+    return sum(flops) / x.shape[0]
+
+
+def _profile_export_phase(cfg, smi, state, imgs, launches):
+    """Phase (q): the profile and the export. profile_model at 640 on the
+    card (bf16) against the port's analytic count; a trace around 3
+    serving batches that names the attention and greedy-keep ops and
+    kernels; one symbolic-batch export of the eval forward run at batches
+    1, 8 and 128 against the live forward, the attention kernel counted;
+    `--profile` and `--export` through the CLI."""
+    import re
+
+    import torch
+
+    from tpu_yolo_torch.io.checkpoint import save_checkpoint
+    from tpu_yolo_torch.io.weights import to_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+    from tpu_yolo_torch.serve import Detector
+    from tpu_yolo_torch.utils.export import export_program, load_program
+    from tpu_yolo_torch.utils.profiler import profile_model, trace
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = YOLO.from_state_dict(cfg, state).fold_batchnorm().to(
+        "cuda", memory_format=torch.channels_last)
+    t0 = time.perf_counter()
+    prof = profile_model(model, cfg, SIZE)
+    profile_s = time.perf_counter() - t0
+    analytic = _analytic_flops(model, torch.zeros((1, SIZE, SIZE, 3), device="cuda",
+                                                  dtype=torch.bfloat16))
+    check(prof["flops"] == analytic, f"profile_model {prof['flops']} vs analytic {analytic}")
+
+    det = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+    x = torch.from_numpy(imgs).cuda()
+    det.detect_batch(x)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(os.path.join(tmp, "tb")):
+            for _ in range(3):
+                det.detect_batch(x)
+            torch.cuda.synchronize()
+        with open(os.path.join(tmp, "tb", "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(os.path.join(tmp, "tb", "trace.json"))
+    names = {}
+    for e in events:
+        name = e.get("name", "")
+        for key in TRACE_NAMES:
+            if key in name:
+                names.setdefault(key, set()).add((e.get("cat"), name))
+    found = {key: sorted(f"{c}: {n}" for c, n in v) for key, v in names.items()}
+    check(set(found) == set(TRACE_NAMES), f"names missing from the trace: {found}")
+    del det
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        manifest = export_program(model, cfg, SIZE, os.path.join(tmp, "export"))
+        export_s = time.perf_counter() - t0
+        run = load_program(os.path.join(tmp, "export"))
+        rows = []
+        for b in EXPORT_BATCHES:
+            xb = x[:b]
+            attention_cuda.fused_attention.launches = 0
+            got = run(model, xb)
+            torch.cuda.synchronize()
+            counted = attention_cuda.fused_attention.launches
+            with torch.inference_mode():
+                want = model(xb.to(torch.bfloat16) / 255)
+            rows.append(dict(batch=b, shape=list(got.shape), equal=torch.equal(got, want),
+                             max_abs_diff=float((got - want).abs().max()),
+                             attention_launches=counted))
+            check(rows[-1]["equal"] and counted > 0, f"exported program: {rows[-1]}")
+        launches["export_attention"] = rows[-1]["attention_launches"]
+        program_ms = cuda_ms(lambda: run(model, x), iters=5)
+        with torch.inference_mode():
+            live_ms = cuda_ms(lambda: model(x.to(torch.bfloat16) / 255), iters=5)
+
+        # the CLI: --profile, then --export of a checkpoint of the same weights
+        cli = [sys.executable, "-m", "tpu_yolo_torch.cli.main"]
+        proc = subprocess.run(cli + ["--profile"], cwd=root, capture_output=True,
+                              text=True, timeout=600)
+        check(proc.returncode == 0, f"--profile: rc {proc.returncode}, {proc.stderr[-2000:]}")
+        banner = proc.stdout.strip().splitlines()
+        ckpt = os.path.join(tmp, "serving.ckpt")
+        save_checkpoint(ckpt, {"params": to_jax_params(state)})
+        t0 = time.perf_counter()
+        exp = subprocess.run(cli + ["--export", "--weights", ckpt, "--save-dir", tmp],
+                             cwd=root, capture_output=True, text=True, timeout=600)
+        cli_export_s = time.perf_counter() - t0
+        check(exp.returncode == 0 and sorted(os.listdir(os.path.join(tmp, "export_n")))
+              == ["manifest.json", "program.pt2"],
+              f"--export: rc {exp.returncode}, {exp.stderr[-2000:]}")
+    gflops = re.search(r"GFLOPs .*: ([\d.]+)", "\n".join(banner))
+    check(banner[:1] == [f"Number of parameters: {prof['params']}"] and gflops is not None
+          and abs(float(gflops.group(1)) - prof["gflops"]) < 0.01,
+          f"--profile banner {banner} vs profile_model {prof}")
+    emit("profile_export", nvidia_smi=smi, model="v11-n", size=SIZE, dtype="bfloat16",
+         params=prof["params"], flops=prof["flops"], gflops=prof["gflops"],
+         bytes_accessed=prof["bytes_accessed"], analytic_flops=analytic,
+         profile_s=profile_s, trace=dict(batches=3, bytes=trace_bytes, names=found),
+         export=dict(seconds=export_s, bytes=manifest["bytes"], input=manifest["input"],
+                     runs=rows, program_ms_bs128=program_ms, live_forward_ms_bs128=live_ms),
+         cli=dict(profile=banner, export_s=cli_export_s,
+                  export=exp.stdout.strip().splitlines()[-1:]),
+         threshold="FLOPs equal the analytic count; trace names both ops and "
+                   "kernels; exported program bit-equal to the live forward at "
+                   "every batch, attention counted")
+
+
 def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
     """Host draws for `b` samples of one mode over sources of the given
     staged dims: (source indices, hw rows, stacked params)."""
@@ -1453,6 +1920,8 @@ def _kernel_rows(captured, launches):
         replaces="tpu_yolo/ops/attention_pallas.py:66",
         launches=launches["attention"], max_abs_err=attn_err,
         staged_serving_launches=launches["staged_attention"],
+        int8_serving_launches=launches["int8_attention"],
+        export_launches=launches["export_attention"],
         **_attention_times(q, k, v, scale))]
 
     # at eval's inputs (val batch 32: K/V streamed), counted in run_test
@@ -1477,6 +1946,7 @@ def _kernel_rows(captured, launches):
         source="tpu_yolo_torch/csrc/nms_keep.cu",
         replaces="tpu_yolo/ops/nms_pallas.py:145",
         launches=launches["nms"], staged_serving_launches=launches["staged_nms"],
+        int8_serving_launches=launches["int8_nms"],
         **_keep_times(*captured["nms"]),
         eval_shape=dict(launches=launches["eval_nms"],
                         **_keep_times(*captured["eval_nms"]))))

@@ -335,9 +335,11 @@ def test_cli_flags():
     assert args.native_eval == "auto" and not args.coco_metrics and not args.plot
     assert not args.device_augment
     assert cli.parse_args(["--train", "--device-augment"]).device_augment
-    for later in ("--export", "--native-train", "--distributed", "--profile"):
+    assert cli.parse_args(["--profile"]).profile
+    assert cli.parse_args(["--export"]).export == "torch"
+    for later in (["--export", "onnx"], ["--native-train"], ["--distributed"]):
         with pytest.raises(SystemExit):
-            cli.parse_args([later])
+            cli.parse_args(later)
     with pytest.raises(SystemExit):
         cli.parse_args(["--gt-bucket", "-1"])
 

@@ -23,8 +23,10 @@ Package layout:
            cv2 where it cannot be built), the device-augment loader
   train/   loss and assigner, optimizer and EMA, train step, trainer
   eval/    evaluator, TP matching and AP, the COCO protocol, plots
-  utils/   drawing detections
-  cli/     `python -m tpu_yolo_torch.cli.main --train | --test`
+  utils/   drawing detections, the profiler, the torch.export export
+  cli/     `python -m tpu_yolo_torch.cli.main --train | --test | --profile
+           | --export`
+  quant.py int8 W8A8 calibration and quantization
   serve.py the Detector; detect.py `python -m tpu_yolo_torch.detect`
 """
 

@@ -1,15 +1,20 @@
 #!/usr/bin/env python
-"""tpu_yolo_torch CLI: the --train and --test slices of
-`tpu_yolo/cli/main.py`, with the flags that reach the trainer and the
-evaluator, plus --device.
+"""tpu_yolo_torch CLI: train / test / profile / export, the slices of
+`tpu_yolo/cli/main.py` that are ported, plus --device.
 
     python -m tpu_yolo_torch.cli.main --train --data-dir ./COCO --batch-size 64
     python -m tpu_yolo_torch.cli.main --test --data-dir ./COCO --weights best.ckpt
+    python -m tpu_yolo_torch.cli.main --profile --input-size 640
+    python -m tpu_yolo_torch.cli.main --export --weights best.ckpt
 
 --device-augment runs the mosaic/affine/HSV/flip augmentation on the
-device. Export, the profile banner, the native train loader and
-multi-process training or evaluation are not ported yet and their flags
-are not declared.
+device. `--profile` prints the parameter count and GFLOPs of a seeded
+model and exits; the same banner opens --train. Bare `--export` writes
+the eval forward as a `torch.export` program under
+save-dir/export_{size}; `--export onnx|both` is refused, since the ONNX
+writer is not ported yet. The native train loader and multi-process
+training or evaluation are not ported yet and their flags are not
+declared.
 """
 from __future__ import annotations
 
@@ -34,8 +39,16 @@ def parse_args(argv=None):
                         "12-metric table (AP/AP50/AP75, AP by area, "
                         "AR@1/10/100 — first-party protocol, "
                         "eval/coco_eval.py) in original-image space")
+    p.add_argument("--export", nargs="?", const="torch", default="",
+                   choices=["torch", "onnx", "both"],
+                   help="export the eval forward (bare --export: a "
+                        "torch.export program under save-dir/export_{size}; "
+                        "onnx and both are not ported yet)")
+    p.add_argument("--profile", action="store_true",
+                   help="print params + GFLOPs (torch.utils.flop_counter) "
+                        "and exit")
     p.add_argument("--weights", default="",
-                   help=".ckpt/.pt/.npz to load (--test reads "
+                   help=".ckpt/.pt/.npz to load (--test and --export read "
                         "save-dir/best.ckpt without it)")
     p.add_argument("--resume", default="", help="checkpoint to resume from")
     p.add_argument("--data-dir", default="./COCO")
@@ -88,7 +101,12 @@ def parse_args(argv=None):
                         "(lowest peak memory, interiors recompute twice)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.export in ("onnx", "both"):
+        p.error(f"--export {args.export}: the ONNX export is not ported to "
+                f"tpu_yolo_torch yet; bare --export writes the torch.export "
+                f"program")
+    return args
 
 
 def setup_seed(seed: int):
@@ -108,6 +126,19 @@ def load_model(args, cfg):
 
     path = args.weights or os.path.join(args.save_dir, "best.ckpt")
     return YOLO.from_state_dict(cfg, load_params(path, cfg)).fold_batchnorm()
+
+
+def print_banner(args, cfg):
+    """The profile banner of a model of seeded weights (--seed), folded,
+    on args.device."""
+    from tpu_yolo_torch.io.weights import from_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+    from tpu_yolo_torch.serve import _device
+    from tpu_yolo_torch.utils.profiler import print_profile
+
+    model = YOLO.from_state_dict(cfg, from_jax_params(init_params(args.seed, cfg), cfg))
+    print_profile(model.fold_batchnorm().to(_device(args.device)), cfg,
+                  args.input_size)
 
 
 def run_test(args, hyp, cfg, max_images: int | None = None):
@@ -162,15 +193,30 @@ def main(argv=None):
     hyp = load_hyperparams(args.hyp or None)
     cfg = get_model_config(args.model_size, num_classes=len(hyp["names"]))
 
+    if args.profile:
+        print_banner(args, cfg)
+        return
+
     if args.train:
         from tpu_yolo_torch.train.trainer import train
 
+        print_banner(args, cfg)
         train(args, hyp, cfg, device=args.device)
 
     if args.test:
         m_ap, m_ap50, recall, precision = run_test(args, hyp, cfg)
         print(f"mAP: {m_ap:.3f}  mAP@50: {m_ap50:.3f}  "
               f"Recall: {recall:.3f}  Precision: {precision:.3f}")
+
+    if args.export:
+        from tpu_yolo_torch.serve import _device
+        from tpu_yolo_torch.utils.export import export_program
+
+        out_dir = os.path.join(args.save_dir, f"export_{args.model_size}")
+        manifest = export_program(load_model(args, cfg).to(_device(args.device)),
+                                  cfg, args.input_size, out_dir)
+        del manifest["weights"]  # one entry per tensor: too long to print
+        print(f"exported: {out_dir} {manifest}")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,8 @@ counterpart of `tools/detect.py`), over `serve.Detector` and utils/viz.
     python -m tpu_yolo_torch.detect --weights yolo11n.pt --size n \
         --out ./detections img1.jpg img2.jpg ...
 
-Runs on the card unless `--device cpu` is given. `--int8` waits for the
-port of the quantizer and is not declared yet.
+Runs on the card unless `--device cpu` is given. `--int8` quantizes the
+model to int8 W8A8 first, calibrated on the first `--batch-size` images.
 """
 from __future__ import annotations
 
@@ -26,6 +26,8 @@ def parse_args(argv=None):
     p.add_argument("--iou", default=0.65, type=float)
     p.add_argument("--batch-size", default=16, type=int)
     p.add_argument("--out", default="./detections", help="output dir")
+    p.add_argument("--int8", action="store_true",
+                   help="quantize (calibrates on the first --batch-size images)")
     p.add_argument("--device-letterbox", action="store_true",
                    help="host only decodes; resize+pad runs on the device "
                         "(ops/letterbox.py)")
@@ -53,6 +55,8 @@ def main(argv=None) -> int:
                                    device_letterbox=args.device_letterbox,
                                    latency_mode=args.latency_mode,
                                    device=args.device)
+    if args.int8:
+        det.quantize(args.images[:args.batch_size])
     os.makedirs(args.out, exist_ok=True)
     n_boxes = 0
     results = ((det.detect_one(p) for p in args.images) if args.latency_mode

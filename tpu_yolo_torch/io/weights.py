@@ -245,18 +245,6 @@ def _check_coverage(state: dict, template: dict) -> None:
                              f"{tuple(template[key].shape)}")
 
 
-def _template(cfg, folded: bool, s2d: bool = False) -> dict:
-    from tpu_yolo_torch.models.yolov11 import YOLO
-
-    model = YOLO(cfg)
-    if folded:
-        model.fold_batchnorm()
-    if s2d:
-        model.fold_stem_space_to_depth()
-    return model.state_dict()
-
-
-
 def _tree_items(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -268,41 +256,49 @@ def _tree_items(tree, prefix=()):
         yield prefix, tree
 
 
+def _leaf_dtype(name: str):
+    """The numpy dtype of a weight: int8 for a quantized kernel (`w_q`),
+    float32 for everything else."""
+    return np.int8 if name == "w_q" else np.float32
+
+
 def from_jax_params(params, cfg) -> dict[str, torch.Tensor]:
-    """JAX-layout param tree (numpy leaves, HWIO kernels; folded or not)
-    -> the port's state dict for `cfg`, float32 on the CPU. Raises unless
-    the tree fills every weight of the model and nothing else."""
+    """JAX-layout param tree (numpy leaves, HWIO kernels; folded, not, or
+    int8-quantized) -> the port's state dict for `cfg` on the CPU: `w_q`
+    int8, every other leaf float32 (`s_in` 0-d). Raises unless the tree
+    fills every weight of the model and nothing else."""
+    from tpu_yolo_torch.models.yolov11 import YOLO
+
     state = {}
     for path, leaf in _tree_items(params):
-        a = np.asarray(leaf, dtype=np.float32)
-        if path[-1] == "w" and a.ndim == 4:
+        a = np.asarray(leaf, dtype=_leaf_dtype(path[-1]))
+        if path[-1] in ("w", "w_q") and a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         state[".".join(path)] = torch.from_numpy(np.array(a))
-    from tpu_yolo_torch.models.yolov11 import has_s2d_stem
-
-    folded = not any(k.endswith(".gamma") for k in state)
-    _check_coverage(state, _template(cfg, folded, has_s2d_stem(state)))
+    _check_coverage(state, YOLO.shaped_like(cfg, state).state_dict())
     return state
 
 
 def to_jax_params(state_dict) -> dict:
     """The inverse of `from_jax_params`: a model or a state dict (name ->
-    tensor or array) -> the JAX-layout tree of float32 numpy arrays
-    (nested dicts, lists where the keys are indices, conv kernels OIHW ->
-    HWIO)."""
+    tensor or array) -> the JAX-layout tree of numpy arrays, int8 for
+    `w_q` and float32 otherwise (nested dicts, lists where the keys are
+    indices, conv kernels OIHW -> HWIO)."""
     if isinstance(state_dict, torch.nn.Module):
         state_dict = state_dict.state_dict()
     root: dict = {}
     for name, t in state_dict.items():
-        a = np.asarray(t.detach().cpu().float() if isinstance(t, torch.Tensor)
-                       else t, dtype=np.float32)
         path = name.split(".")
-        if path[-1] == "w" and a.ndim == 4:
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu()
+            t = t if t.dtype == torch.int8 else t.float()
+        a = np.asarray(t, dtype=_leaf_dtype(path[-1]))
+        if path[-1] in ("w", "w_q") and a.ndim == 4:
             a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         node = root
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        node[path[-1]] = np.array(a, order="C")  # (ascontiguousarray makes a 0-d s_in 1-d)
 
     def listify(node):
         if not isinstance(node, dict):
@@ -380,7 +376,9 @@ def convert_state_dict(state: dict[str, np.ndarray], cfg,
         if key in out:
             raise KeyError(f"{src_key} -> {key}: filled twice")
         out[key] = torch.from_numpy(np.array(tensor, dtype=np.float32))
-    _check_coverage(out, _template(cfg, folded=False))
+    from tpu_yolo_torch.models.yolov11 import YOLO
+
+    _check_coverage(out, YOLO(cfg).state_dict())
     return out
 
 

@@ -220,8 +220,8 @@ def space_to_depth_host(x: np.ndarray) -> np.ndarray:
 
 def has_s2d_stem(state_dict) -> bool:
     """Whether a state dict holds the space-to-depth stem (its 2x2
-    kernel; fold_stem_space_to_depth)."""
-    w = state_dict.get("net.p1.0.w")
+    kernel, float or int8; fold_stem_space_to_depth)."""
+    w = state_dict.get("net.p1.0.w", state_dict.get("net.p1.0.w_q"))
     return w is not None and w.shape[-1] == 2
 
 
@@ -295,22 +295,34 @@ class YOLO(nn.Module):
         self.eval()
 
     @classmethod
-    def from_state_dict(cls, cfg: ModelConfig, state_dict) -> "YOLO":
-        """A model holding `state_dict` (folded or unfolded), loaded
-        strictly: every key must be used and every weight filled."""
+    def shaped_like(cls, cfg: ModelConfig, state_dict) -> "YOLO":
+        """A model of `cfg` in the form `state_dict` has (BatchNorm folded
+        or not, the s2d stem, int8 convs where it has `w_q` leaves), its
+        weights not loaded."""
         model = cls(cfg)
         if not any(k.endswith(".gamma") for k in state_dict):
             model.fold_batchnorm()
         if has_s2d_stem(state_dict):
             model.fold_stem_space_to_depth()
+        for name, m in model.named_modules():
+            if f"{name}.w_q" in state_dict:
+                m.quantize_()
+        return model
+
+    @classmethod
+    def from_state_dict(cls, cfg: ModelConfig, state_dict) -> "YOLO":
+        """A model holding `state_dict` (folded, unfolded or quantized),
+        loaded strictly: every key must be used and every weight filled."""
+        model = cls.shaped_like(cfg, state_dict)
         model.load_state_dict(state_dict, strict=True)
         return model
 
     @property
     def s2d_stem(self) -> bool:
         """Whether the stem is the space-to-depth one
-        (fold_stem_space_to_depth)."""
-        return self.net["p1"][0].w.shape[-1] == 2
+        (fold_stem_space_to_depth), float or int8."""
+        stem = self.net["p1"][0]
+        return (stem.w_q if stem.quantized else stem.w).shape[-1] == 2
 
     def _stem_input(self, x):
         """NHWC images -> the stem's NCHW input. With the s2d stem an
@@ -412,6 +424,9 @@ class YOLO(nn.Module):
         `forward_raw` then rearranges image inputs on the device or takes
         pre-rearranged 4·C_in-channel ones."""
         stem = self.net["p1"][0]
+        if stem.quantized and not self.s2d_stem:
+            raise ValueError("fold_stem_space_to_depth: the stem is int8 "
+                             "already; rewrite it before quantizing")
         if not self.s2d_stem:
             stem.w = nn.Parameter(_stem_s2d_weight(stem.w),
                                   requires_grad=stem.w.requires_grad)
@@ -421,6 +436,9 @@ class YOLO(nn.Module):
     @torch.no_grad()
     def fold_input_scale(self, scale: float = 1.0 / 255.0) -> "YOLO":
         """Fold the input normalization into the stem conv, in place:
-        conv(s·x, W) == conv(x, s·W), so callers can feed 0..255 images."""
+        conv(s·x, W) == conv(x, s·W), so callers can feed 0..255 images.
+        Raises ValueError on an int8 stem, as the JAX package does."""
+        if self.net["p1"][0].quantized:
+            raise ValueError("fold_input_scale requires an unquantized stem")
         self.net["p1"][0].w.mul_(scale)
         return self

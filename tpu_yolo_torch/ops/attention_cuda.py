@@ -5,7 +5,8 @@ Replaces the TPU kernel `tpu_yolo/ops/attention_pallas.py::fused_attention`.
 The kernel is the custom op `torch.ops.tpu_yolo_torch.psa_attention`: the
 plain version on CPU tensors, the kernel on CUDA tensors, and a fake
 implementation that gives `torch.export` the output's shape, so an
-exported program calls the op (importing this module registers it).
+exported program calls the op, and a FLOP formula for FlopCounterMode
+(importing this module registers all three).
 `fused_attention` is the wrapper: it checks its inputs, calls the op and
 counts the kernel's launches in `fused_attention.launches`.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from tpu_yolo_torch.ops import cuda_build
 
@@ -87,6 +89,13 @@ def _psa_attention_cuda(q, k, v, scale):
 @psa_attention.register_fake
 def _psa_attention_fake(q, k, v, scale):
     return torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.tpu_yolo_torch.psa_attention)
+def _psa_attention_flops(q_shape, k_shape, v_shape, *args, **kwargs) -> int:
+    """The two products, Q·Kᵀ and P·V, for FlopCounterMode: 2·BH·T·T'·(dk + dv)."""
+    bh, t, dk = q_shape
+    return 2 * bh * t * k_shape[1] * (dk + v_shape[-1])
 
 
 def fused_attention(q, k, v, scale: float):

@@ -12,7 +12,12 @@ dict key is the JAX tree path joined with dots:
                                                 mode, running ones in eval
   folded:   w (OIHW), b                       — BN folded in, or a plain
                                                 conv with a bias
-`w`, `b`, `gamma` and `beta` are parameters; `mean` and `var` are buffers.
+  int8:     w_q (int8 OIHW), s_w (O,),        — W8A8 (tpu_yolo_torch/quant.py):
+            s_in (), b                          quantize the input, int8 conv
+                                                with exact int32 sums,
+                                                dequantize, bias
+`w`, `b`, `gamma` and `beta` are parameters; `mean` and `var` are buffers,
+as are the four leaves of the int8 form (all float32 but `w_q`).
 
 A module in training mode updates its running statistics in `forward`,
 as torch's BatchNorm does. A checkpointed region (`ckpt_region`) runs its
@@ -24,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -61,6 +67,79 @@ def identity(x):
     return x
 
 
+def _pads(padding):
+    """An int (symmetric) or ((top, bottom), (left, right)) -> the pair."""
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (top, bottom), (left, right) = padding
+    return (top, bottom), (left, right)
+
+
+def int8_conv2d(xq, w_q, stride: int = 1, padding=0, groups: int = 1):
+    """The exact int32 sums of an int8 convolution, on the CPU or a card:
+    xq (B, C, H, W) int8 (any memory format), w_q (O, C/groups, kh, kw)
+    int8 -> (B, O, Ho, Wo) int32 in channels_last memory. `padding` is an
+    int or ((top, bottom), (left, right)). The counterpart of the JAX
+    package's `conv2d(xq, w_q, preferred_element_type=int32)`.
+
+    A dense conv (groups 1) is one `torch._int_mm` over an NHWC im2col:
+    the kh·kw shifted views of the padded input side by side, K = kh·kw·C
+    and N = O padded with zeros to multiples of 8 (the card's rule; zeros
+    leave the sums exact), the weight as a column-major operand, and M
+    padded past 16 rows on the card. An f32 conv would not do: its sums
+    leave the exact range once C·kh·kw·127² >= 2^24. A depthwise conv
+    (groups == C == O) is an f32 conv of the int8 values, exact since
+    kh·kw·127² < 2^24, and int8 values are exact in TF32 too. Other
+    groupings raise."""
+    if xq.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"int8_conv2d takes int8 tensors, got {xq.dtype}, {w_q.dtype}")
+    (top, bottom), (left, right) = _pads(padding)
+    b, c, h, w = xq.shape
+    o, cg, kh, kw = w_q.shape
+    if groups == c and o == c and cg == 1:
+        xf, pad = xq.float(), (top, left)
+        if (top, left) != (bottom, right):
+            xf, pad = F.pad(xf, (left, right, top, bottom)), (0, 0)
+        return F.conv2d(xf, w_q.float(), stride=stride, padding=pad,
+                        groups=groups).to(torch.int32)
+    if groups != 1 or cg != c:
+        raise ValueError(f"int8_conv2d: groups={groups} with C={c}, O={o}, "
+                         f"C/groups={cg}: dense and depthwise convs only")
+    x = xq.permute(0, 2, 3, 1)
+    if top or bottom or left or right:
+        x = F.pad(x, (0, 0, left, right, top, bottom))
+    ho = (h + top + bottom - kh) // stride + 1
+    wo = (w + left + right - kw) // stride + 1
+    taps = [x[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+            for i in range(kh) for j in range(kw)]
+    k = kh * kw * c
+    k8, o8 = -(-k // 8) * 8, -(-o // 8) * 8
+    if k8 > k:
+        taps.append(x.new_zeros((b, ho, wo, k8 - k)))
+    a = (taps[0] if len(taps) == 1 else torch.cat(taps, -1)).reshape(b * ho * wo, k8)
+    weight = w_q.permute(0, 2, 3, 1).reshape(o, k)       # (O, (i, j, c))
+    if (k8, o8) != (k, o):
+        weight = F.pad(weight, (0, k8 - k, 0, o8 - o))
+    m = a.shape[0]
+    if a.is_cuda and m <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    y = torch._int_mm(a, weight.t())[:m, :o]
+    return y.reshape(b, ho, wo, o).permute(0, 3, 1, 2)
+
+
+def quantize_weight(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """An f32 OIHW kernel -> (w_q int8 OIHW, s_w (O,) f32): per output
+    channel symmetric, s_w = max|w| over I, H, W / 127, floored at
+    1e-12, and w_q = clip(round(w / s_w), -127, 127), rounding half to even. numpy
+    f32 arithmetic, as the JAX package's `quantize_params` does it, so
+    both give the same bits."""
+    w = np.asarray(w, np.float32)
+    s_w = np.abs(w).reshape(w.shape[0], -1).max(1) / 127.0
+    s_w = np.maximum(s_w, 1e-12).astype(np.float32)
+    w_q = np.clip(np.round(w / s_w[:, None, None, None]), -127, 127).astype(np.int8)
+    return w_q, s_w
+
+
 class ConvBN(nn.Module):
     """One convolution with its BatchNorm and activation."""
 
@@ -83,7 +162,13 @@ class ConvBN(nn.Module):
     def folded(self) -> bool:
         return hasattr(self, "b")
 
+    @property
+    def quantized(self) -> bool:
+        return hasattr(self, "w_q")
+
     def forward(self, x):
+        if self.quantized:
+            return self._forward_int8(x)
         w = self.w if self.w.dtype == x.dtype else self.w.to(x.dtype)
         if self.folded:
             b = self.b if self.b.dtype == x.dtype else self.b.to(x.dtype)
@@ -117,6 +202,21 @@ class ConvBN(nn.Module):
         return self.act(yf * scale.view(1, -1, 1, 1)
                         + (self.beta - mean * scale).view(1, -1, 1, 1))
 
+    def quantize_input(self, x):
+        """An int8 module's quantized input: clip(round(x / s_in), ±127)
+        in f32, a division rounding half to even, as the JAX package's."""
+        return torch.clamp(torch.round(x.float() / self.s_in), -127, 127).to(torch.int8)
+
+    def _forward_int8(self, x):
+        """The JAX package's order: the quantized input, the int32 conv,
+        y·(s_in·s_w) + b and the activation in f32, cast back to x's
+        dtype."""
+        y = int8_conv2d(self.quantize_input(x), self.w_q, self.stride, self.padding,
+                        self.groups)
+        y = (y.float() * (self.s_in * self.s_w).view(1, -1, 1, 1)
+             + self.b.view(1, -1, 1, 1))
+        return self.act(y).to(x.dtype)
+
     @torch.no_grad()
     def fold_(self):
         """Fold BatchNorm into the conv in place:
@@ -131,6 +231,29 @@ class ConvBN(nn.Module):
             delattr(self, name)
         self.w = nn.Parameter(w, requires_grad=False)
         self.b = nn.Parameter(b, requires_grad=False)
+        return self
+
+    @torch.no_grad()
+    def quantize_(self, s_in: float | None = None):
+        """Turn a folded module in place into the int8 form, its input
+        scale `s_in` (f32) and its kernel by `quantize_weight`. With
+        s_in=None the form is made with zero leaves, for a state dict to
+        fill (YOLO.from_state_dict)."""
+        if self.quantized:
+            raise ValueError("ConvBN.quantize_: already quantized")
+        if not self.folded:
+            raise ValueError("ConvBN.quantize_: fold BatchNorm first")
+        w, b = self.w.detach(), self.b.detach().float()
+        if s_in is None:
+            w_q, s_w = np.zeros(w.shape, np.int8), np.zeros(w.shape[0], np.float32)
+        else:
+            w_q, s_w = quantize_weight(w.float().cpu().numpy())
+        del self.w, self.b
+        self.register_buffer("w_q", torch.from_numpy(w_q).to(w.device))
+        self.register_buffer("s_w", torch.from_numpy(s_w).to(w.device))
+        self.register_buffer("s_in", torch.tensor(
+            np.float32(0.0 if s_in is None else s_in), device=w.device))
+        self.register_buffer("b", b)
         return self
 
 

@@ -20,6 +20,8 @@ A saved serving program (`save_compiled` / `load_compiled`) is the device
 program exported by `torch.export` at a fixed batch, with the weights as
 its inputs: it runs without tracing the Python model again, and the
 three kernels appear in it as the custom ops of ops/*_cuda.py.
+`quantize` switches the Detector to int8 W8A8 convs (quant.py); a
+quantized Detector saves an int8 program, which takes int8 weights.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.letterbox import letterbox_batch
+from tpu_yolo_torch.ops.nn import ConvBN
+from tpu_yolo_torch.utils.export import WeightsAsInputs
 
 EXPORT_FORMAT = "tpu_yolo_torch-export-v1"
 
@@ -111,9 +115,7 @@ class Detector:
         self.decode_threads = decode_threads
         self._stager = None  # the staging pipeline, made at first use
         self._fixed_batch = None  # set by load_compiled
-        self.model = model.fold_batchnorm().to(
-            device=self.device, dtype=compute_dtype,
-            memory_format=torch.channels_last).eval()
+        self.model = self._place(model)
         self._nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                          max_det=max_det, ranking=ranking, max_nms=max_nms,
                          multi_label=multi_label)
@@ -124,6 +126,38 @@ class Detector:
             ranking=ranking, max_nms=max_nms, multi_label=multi_label,
             latency_mode=latency_mode, device_letterbox=device_letterbox,
             stage_size=stage_size, decode_threads=decode_threads)
+
+    def _place(self, model: YOLO) -> YOLO:
+        """Fold the model's BatchNorm and move it, in place, to the device
+        in channels_last memory, its float convs in the compute dtype; an
+        int8 conv keeps its float32 scales and bias."""
+        model = model.fold_batchnorm().to(device=self.device,
+                                          memory_format=torch.channels_last)
+        for m in model.modules():
+            if isinstance(m, ConvBN) and not m.quantized:
+                m.to(dtype=self.compute_dtype)
+        return model.eval()
+
+    def quantize(self, calib_paths: list[str], margin: float = 1.0) -> "Detector":
+        """Switch to int8 W8A8 inference (tpu_yolo_torch/quant.py),
+        calibrated in bf16 on `calib_paths`, decoded and letterboxed as
+        `stream` does on the host (failed decodes are dropped), as the JAX
+        package's `Detector.quantize`. The weights quantized are the ones
+        the Detector holds, in its compute dtype. Then `save_compiled`
+        saves the int8 program. Returns self."""
+        from tpu_yolo_torch.quant import quantize_model
+
+        if self._fixed_batch is not None:
+            raise ValueError("this Detector runs a saved program: quantize the "
+                             "Detector it was saved from, then save_compiled")
+        s = self.input_size
+        imgs = np.zeros((len(calib_paths), s, s, 3), np.uint8)
+        metas = self._decode_batch(list(calib_paths), imgs)
+        imgs = imgs[metas[:, 0] > 0]
+        if not len(imgs):
+            raise ValueError("Detector.quantize: no calibration image decoded")
+        self.model = self._place(quantize_model(self.model, imgs, margin))
+        return self
 
     @classmethod
     def from_checkpoint(cls, path: str, size: str = "n", num_classes: int = 80,
@@ -272,7 +306,7 @@ class Detector:
         `program.pt2` (`torch.export.save`). It runs only where it was
         made: `load_compiled` checks the environment."""
         spec = self._weights_spec()
-        program = _WeightsAsInputs(self, list(spec))
+        program = WeightsAsInputs(_ServingProgram(self))
         weights = tuple(self.model.state_dict().values())
         # the anchor grid is a constant of the program: made here, outside
         # the trace, so the cache never holds a traced tensor (keyed by the
@@ -329,6 +363,14 @@ class Detector:
         if isinstance(params, YOLO):
             params = params.fold_batchnorm().state_dict()
         want = meta["weights"]
+        int8_program = any(k.endswith(".w_q") for k in want)
+        if int8_program != any(k.endswith(".w_q") for k in params):
+            raise ValueError(
+                f"{path} holds an int8 program and the weights given are "
+                f"float: quantize them as the saved Detector was "
+                f"(Detector.quantize)" if int8_program else
+                f"{path} holds a float program and the weights given are "
+                f"int8: save_compiled the quantized Detector")
         for key in list(want) + [k for k in params if k not in want]:
             got = list(params[key].shape) if key in params else None
             if key not in want or got != want[key][0]:
@@ -481,20 +523,3 @@ class _ServingProgram(torch.nn.Module):
 
     def forward(self, *inputs):
         return self._body(*inputs)
-
-
-class _WeightsAsInputs(torch.nn.Module):
-    """A Detector's serving program with the folded weights as its first
-    input (a tuple in `keys` order), for torch.export: the program is
-    held outside the module tree, so the export lifts no parameter, and
-    `functional_call` runs it with the given tensors in place of the
-    model's own."""
-
-    def __init__(self, det: Detector, keys: list[str]):
-        super().__init__()
-        self._program = (_ServingProgram(det),)
-        self._keys = ["model." + k for k in keys]
-
-    def forward(self, weights, *inputs):
-        return torch.func.functional_call(
-            self._program[0], dict(zip(self._keys, weights)), inputs)
