@@ -32,8 +32,16 @@ program loaded in a fresh process bit-equal to the live Detector, `detect
 --int8`, and int8 timed beside bf16; and the profile and the export
 (phase q): v11-n's FLOPs against the port's analytic count, a trace of
 three serving batches naming both kernels, one symbolic-batch export run
-at batches 1, 8 and 128 against the live forward, `--profile` and
-`--export` through the CLI. The kernels are custom ops
+at batches 1, 8 and 128 against the live forward, `--profile` through the CLI.
+Then the ONNX export (phase r): phase e's serving weights exported from
+a model on the card, the file parsed and run by the port's numpy
+interpreter on the host at batches 1 and 2 against the live f32 forward
+on the card (TF32 off, the attention kernel counted), and `--export
+both` through the CLI; and the trainer with `--native-train auto` and
+`--tensorboard` on phase n's mini-COCO (phase s): the loader it took
+and why, the top-k kernel counted, the event file's scalars or the
+message that disabled it, `--native-train on` refused without the
+native library. The kernels are custom ops
 (`torch.ops.tpu_yolo_torch.*`), so every launch goes through the
 dispatcher. Each phase prints one JSON line; the line before the last
 lists the kernels
@@ -120,8 +128,26 @@ TRACE_NAMES = ("tpu_yolo_torch::psa_attention", "tpu_yolo_torch::nms_greedy_keep
 PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; `at_s`: seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - _START, 1),
+                      **fields}), flush=True)
+
+
+def _cli(argv) -> list[str]:
+    """tpu_yolo_torch.cli.main.main(argv) in this process; its stdout lines."""
+    import contextlib
+    import io
+
+    from tpu_yolo_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().strip().splitlines()
 
 
 def check(ok: bool, what: str):
@@ -457,8 +483,15 @@ def main() -> int:
     _int8_phase(cfg, smi, state, imgs, launches)
     _profile_export_phase(cfg, smi, state, imgs, launches)
 
+    # (r) the ONNX export of the serving weights, run on the host, against
+    # the live f32 forward on the card; --export both through the CLI
+    _onnx_phase(cfg, smi, state, imgs, launches)
+
     # (n) the trainer with --device-augment beside the host loader
     _train_device_augment_phase(cfg, smi, launches)
+
+    # (s) the trainer with --native-train auto and --tensorboard
+    _native_train_phase(cfg, smi, launches)
 
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
@@ -1495,20 +1528,17 @@ def _profile_export_phase(cfg, smi, state, imgs, launches):
     serving batches that names the attention and greedy-keep ops and
     kernels; one symbolic-batch export of the eval forward run at batches
     1, 8 and 128 against the live forward, the attention kernel counted;
-    `--profile` and `--export` through the CLI."""
+    `--profile` through the CLI (phase r runs `--export both`)."""
     import re
 
     import torch
 
-    from tpu_yolo_torch.io.checkpoint import save_checkpoint
-    from tpu_yolo_torch.io.weights import to_jax_params
     from tpu_yolo_torch.models.yolov11 import YOLO
     from tpu_yolo_torch.ops import attention_cuda, nms_cuda
     from tpu_yolo_torch.serve import Detector
     from tpu_yolo_torch.utils.export import export_program, load_program
     from tpu_yolo_torch.utils.profiler import profile_model, trace
 
-    root = os.path.dirname(os.path.abspath(__file__))
     model = YOLO.from_state_dict(cfg, state).fold_batchnorm().to(
         "cuda", memory_format=torch.channels_last)
     t0 = time.perf_counter()
@@ -1563,21 +1593,8 @@ def _profile_export_phase(cfg, smi, state, imgs, launches):
         with torch.inference_mode():
             live_ms = cuda_ms(lambda: model(x.to(torch.bfloat16) / 255), iters=5)
 
-        # the CLI: --profile, then --export of a checkpoint of the same weights
-        cli = [sys.executable, "-m", "tpu_yolo_torch.cli.main"]
-        proc = subprocess.run(cli + ["--profile"], cwd=root, capture_output=True,
-                              text=True, timeout=600)
-        check(proc.returncode == 0, f"--profile: rc {proc.returncode}, {proc.stderr[-2000:]}")
-        banner = proc.stdout.strip().splitlines()
-        ckpt = os.path.join(tmp, "serving.ckpt")
-        save_checkpoint(ckpt, {"params": to_jax_params(state)})
-        t0 = time.perf_counter()
-        exp = subprocess.run(cli + ["--export", "--weights", ckpt, "--save-dir", tmp],
-                             cwd=root, capture_output=True, text=True, timeout=600)
-        cli_export_s = time.perf_counter() - t0
-        check(exp.returncode == 0 and sorted(os.listdir(os.path.join(tmp, "export_n")))
-              == ["manifest.json", "program.pt2"],
-              f"--export: rc {exp.returncode}, {exp.stderr[-2000:]}")
+        # the CLI's --profile, in this process (a fresh one costs seconds)
+        banner = _cli(["--profile"])
     gflops = re.search(r"GFLOPs .*: ([\d.]+)", "\n".join(banner))
     check(banner[:1] == [f"Number of parameters: {prof['params']}"] and gflops is not None
           and abs(float(gflops.group(1)) - prof["gflops"]) < 0.01,
@@ -1588,11 +1605,220 @@ def _profile_export_phase(cfg, smi, state, imgs, launches):
          profile_s=profile_s, trace=dict(batches=3, bytes=trace_bytes, names=found),
          export=dict(seconds=export_s, bytes=manifest["bytes"], input=manifest["input"],
                      runs=rows, program_ms_bs128=program_ms, live_forward_ms_bs128=live_ms),
-         cli=dict(profile=banner, export_s=cli_export_s,
-                  export=exp.stdout.strip().splitlines()[-1:]),
+         cli=dict(profile=banner),
          threshold="FLOPs equal the analytic count; trace names both ops and "
                    "kernels; exported program bit-equal to the live forward at "
                    "every batch, attention counted")
+
+
+def _onnx_phase(cfg, smi, state, imgs, launches):
+    """Phase (r): the ONNX export of phase e's serving weights (v11-n, 640
+    px, f32, symbolic batch) from a model on the card; the file parsed and
+    interpreted on the host at batches 1 and 2 against the live f32
+    forward on the card (TF32 off, as in phase f), the attention kernel
+    counted there; then `--export both` through the CLI."""
+    import torch
+
+    from tpu_yolo_torch.io.checkpoint import save_checkpoint
+    from tpu_yolo_torch.io.weights import to_jax_params
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda
+    from tpu_yolo_torch.ops.nms import batched_nms
+    from tpu_yolo_torch.utils.onnx import export_onnx
+    from tpu_yolo_torch.utils.onnx.interp import run_graph
+    from tpu_yolo_torch.utils.onnx.parse import parse_model
+
+    model = YOLO.from_state_dict(cfg, state).fold_batchnorm().to(
+        "cuda", memory_format=torch.channels_last)
+    x_u8 = imgs[:2]
+    x_nchw = np.ascontiguousarray(x_u8.transpose(0, 3, 1, 2), np.float32) / np.float32(255)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.onnx")
+        t0 = time.perf_counter()
+        meta = export_onnx(model, cfg, SIZE, path)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            graph, header = parse_model(f.read())
+        parse_s = time.perf_counter() - t0
+        ops = {}
+        for n in graph.nodes:
+            ops[n.op_type] = ops.get(n.op_type, 0) + 1
+        check(header["opset"] == 17 and "Softmax" not in ops and "Cast" not in ops
+              and meta["input"] == f"float32[batch,3,{SIZE},{SIZE}]",
+              f"ONNX header {header}, meta {meta}, ops {ops}")
+
+        rows, dets = [], {}
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for b in (1, 2):
+                t0 = time.perf_counter()
+                got = run_graph(graph, {"images": x_nchw[:b]})["output"]
+                interp_s = time.perf_counter() - t0
+                attention_cuda.fused_attention.launches = 0
+                with torch.inference_mode():
+                    live = model(torch.from_numpy(x_u8[:b]).cuda().float() / 255)
+                torch.cuda.synchronize()
+                counted = attention_cuda.fused_attention.launches
+                live = live.cpu().numpy()
+                box_err = np.abs(got[..., :4] - live[..., :4])
+                score_err = np.abs(got[..., 4:] - live[..., 4:])
+                rows.append(dict(
+                    batch=b, shape=list(got.shape), interp_s=interp_s,
+                    attention_launches=counted,
+                    box_err_px=dict(max=float(box_err.max()),
+                                    **{f"p{q}": float(np.percentile(box_err, q))
+                                       for q in (50, 99, 99.9)},
+                                    above_0_05=int((box_err > 0.05).sum())),
+                    score_err=dict(max=float(score_err.max()),
+                                   **{f"p{q}": float(np.percentile(score_err, q))
+                                      for q in (50, 99, 99.9)},
+                                   above_5e_4=int((score_err > 5e-4).sum()))))
+                check(got.shape == live.shape and np.isfinite(got).all() and counted > 0,
+                      f"ONNX file at batch {b}: {rows[-1]}")
+                dets[b] = [batched_nms(torch.from_numpy(o)) for o in (got, live)]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        launches["onnx_attention"] = rows[-1]["attention_launches"]
+        anchors_ok = all(r["box_err_px"]["max"] <= 0.05 and r["score_err"]["max"] <= 5e-4
+                         for r in rows)
+        # phase f's two-way criterion after NMS, per image
+        after_nms = [dict(batch=b, image=i, **_agreement(_row(onnx, i), _row(live, i)))
+                     for b, (onnx, live) in dets.items() for i in range(b)]
+        nms_ok = all(min(a["match"]) >= 0.98 and a["max_box_err_px"] <= 0.05
+                     and a["max_score_err"] <= 5e-4 for a in after_nms)
+        check(anchors_ok or nms_ok, f"ONNX file vs the live f32 forward: {rows}, {after_nms}")
+
+        # --export both through the CLI (in this process), from a
+        # checkpoint of the same weights
+        ckpt = os.path.join(tmp, "serving.ckpt")
+        save_checkpoint(ckpt, {"params": to_jax_params(state)})
+        t0 = time.perf_counter()
+        cli_lines = _cli(["--export", "both", "--weights", ckpt, "--save-dir", tmp])
+        cli_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "export_n")
+        check(sorted(os.listdir(out)) == ["manifest.json", "model.onnx", "program.pt2"],
+              f"--export both: {cli_lines}")
+        with open(os.path.join(out, "model.onnx"), "rb") as f:
+            cli_blob = f.read()
+        with open(path, "rb") as f:
+            same_bytes = cli_blob == f.read()
+        cli_graph, _ = parse_model(cli_blob)
+        check(len(cli_graph.nodes) == meta["nodes"], "--export both: another ONNX graph")
+    emit("onnx", nvidia_smi=smi, model="v11-n", size=SIZE, dtype="float32",
+         bytes=meta["bytes"], nodes=meta["nodes"], initializers=meta["initializers"],
+         input=meta["input"], output=meta["output"], ops=ops, export_s=export_s,
+         parse_s=parse_s, runs=rows, gate="anchors" if anchors_ok else "after_nms",
+         after_nms=after_nms,
+         cli=dict(export_both_s=cli_s, onnx_bytes_equal=same_bytes, lines=cli_lines),
+         threshold="every anchor: boxes within 0.05 px, scores within 5e-4 of the live "
+                   "f32 forward on the card (TF32 off); where the gap is larger, phase "
+                   "f's criterion after NMS; attention counted in the live forward")
+
+
+def _native_train_phase(cfg, smi, launches):
+    """Phase (s): the trainer one epoch with --native-train auto and
+    --tensorboard on phase n's seeded mini-COCO (v11-n, 640 px, batch 64,
+    bf16): the loader it takes and why, the top-k kernel counted; without
+    the native library --native-train on must raise its message, and where
+    the library loads the native loader's img/s beside the host loader's."""
+    import contextlib
+    import io
+
+    import torch
+
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.data import native_loader
+    from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
+    from tpu_yolo_torch.data.loader import DataLoader
+    from tpu_yolo_torch.ops import topk_cuda
+    from tpu_yolo_torch.seeded import write_mini_coco
+    from tpu_yolo_torch.train import trainer
+
+    available = native_loader.available()
+    why = native_loader.why_unavailable()
+    steps = DA_IMAGES // TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = write_mini_coco(os.path.join(tmp, "coco"), DA_IMAGES, hw=(480, 640),
+                                   seed=SEED + 1)
+
+        def args(mode, name):
+            return argparse.Namespace(
+                model_size="n", input_size=SIZE, batch_size=TRAIN_BATCH, epochs=1,
+                data_dir=data_dir, save_dir=os.path.join(tmp, name), resume="",
+                weights="", workers=8, gt_bucket=0, remat=False, remat_level="stage",
+                tensorboard=True, val_batch_size=EVAL_BATCH, native_eval="auto",
+                max_nms=2048, device_augment=False, native_train=mode, seed=SEED)
+
+        out = io.StringIO()
+        topk_cuda.topk_mask.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            state = trainer.train(args("auto", "auto"), load_hyperparams(), cfg,
+                                  device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        topk = topk_cuda.topk_mask.launches
+        lines = out.getvalue().strip().splitlines()
+        print("\n".join(lines), flush=True)
+        loader_line = [ln for ln in lines if ln.startswith("[train] loader: ")]
+        want = ("[train] loader: native" if available
+                else "[train] loader: host (--native-train auto: ")
+        check(state.step == steps and topk == steps and len(loader_line) == 1
+              and loader_line[0].startswith(want),
+              f"--native-train auto: {state.step} steps, {topk} top-k launches, {lines}")
+        launches["native_train_topk"] = topk
+        del state
+
+        tb_dir = os.path.join(tmp, "auto", "tb")
+        tb_lines = [ln for ln in lines if ln.startswith("tensorboard disabled: ")]
+        tensorboard = dict(disabled=tb_lines[0] if tb_lines else None)
+        if not tb_lines:
+            from tensorboard.backend.event_processing.event_accumulator import (
+                EventAccumulator)
+
+            events = [f for f in os.listdir(tb_dir) if f.startswith("events.")]
+            acc = EventAccumulator(tb_dir)
+            acc.Reload()
+            tags = sorted(acc.Tags()["scalars"])
+            tensorboard.update(event_files=events, scalars={
+                t: [[e.step, e.value] for e in acc.Scalars(t)] for t in tags})
+            check(len(events) == 1 and {"loss/box", "loss/cls", "loss/dfl", "val/mAP"}
+                  <= set(tags), f"--tensorboard: {tensorboard}")
+
+        refusal, rates = None, None
+        if not available:
+            try:
+                trainer.train(args("on", "on"), load_hyperparams(), cfg, device="cuda")
+            except RuntimeError as e:
+                refusal = str(e)
+            check(refusal is not None and refusal.startswith(
+                "--native-train on requires native/libtpuyolo_data.so"),
+                f"--native-train on without the library: {refusal}")
+        else:
+            from tpu_yolo_torch.data.native_train import NativeTrainLoader
+
+            files = split_files(data_dir, "train2017")
+            cache = os.path.join(data_dir, "train2017.cache.npy")
+            hyp = load_hyperparams()
+            loaders = {
+                "native": NativeTrainLoader(files, SIZE, hyp, TRAIN_BATCH,
+                                            cache_path=cache, threads=8, seed=SEED),
+                "host": DataLoader(DetectionDataset(files, SIZE, hyp, augment=True,
+                                                    cache_path=cache), TRAIN_BATCH,
+                                   shuffle=True, num_workers=8, drop_last=True)}
+            rates = {}
+            for name, loader in loaders.items():
+                t0 = time.perf_counter()
+                n = TRAIN_BATCH * sum(1 for _ in loader)
+                rates[name] = n / (time.perf_counter() - t0)
+    emit("native_train", nvidia_smi=smi, model="v11-n", size=SIZE, batch=TRAIN_BATCH,
+         dtype="bfloat16", images=DA_IMAGES, native_available=available,
+         unavailable_because=why, loader_line=loader_line[0], topk_launches=topk,
+         train_s=train_s, epoch=[ln for ln in lines if ln.startswith("epoch ")][-1],
+         native_on_refusal=refusal, loader_alone_img_per_s=rates,
+         tensorboard=tensorboard)
 
 
 def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
@@ -1922,6 +2148,7 @@ def _kernel_rows(captured, launches):
         staged_serving_launches=launches["staged_attention"],
         int8_serving_launches=launches["int8_attention"],
         export_launches=launches["export_attention"],
+        onnx_live_forward_launches=launches["onnx_attention"],
         **_attention_times(q, k, v, scale))]
 
     # at eval's inputs (val batch 32: K/V streamed), counted in run_test
@@ -1969,6 +2196,7 @@ def _kernel_rows(captured, launches):
         shape=dict(b=x.shape[0], n=x.shape[1], a=x.shape[2], k=TOP_K,
                    nonzero=int((x > 0).sum()), selected=int(got.sum())),
         launches=launches["topk"], device_augment_launches=launches["augment_topk"],
+        native_train_launches=launches["native_train_topk"],
         max_abs_err=float((got.int() - want.int()).abs().max()),
         ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K), graph=True),
         ms_with_launch=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),

@@ -155,6 +155,14 @@ def test_cli_reads_best_ckpt_and_prints_the_coco_table(coco, tmp_path, capsys):
         assert (tmp_path / name).stat().st_size > 5000
 
 
+def test_run_test_shows_the_eval_bar(coco, capsys):
+    """run_test wraps the loader in a tqdm bar named "eval" on stderr, as
+    tpu_yolo's run_test does: 8 images at val batch 4 are 2 batches."""
+    cli.run_test(_args(coco), coco[2], get_model_config("n", 2), max_images=8)
+    err = capsys.readouterr().err
+    assert "eval: 100%" in err and "2/2" in err, err
+
+
 def test_cli_test_raises_without_a_card(coco):
     if torch.cuda.is_available():
         pytest.skip("a card is present")

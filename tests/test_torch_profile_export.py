@@ -191,18 +191,51 @@ def test_export_pinned_batch_refuses_another(tmp_path):
 def test_cli_flags_profile_and_export():
     assert cli.parse_args(["--profile"]).profile
     assert cli.parse_args(["--export"]).export == "torch"
-    assert cli.parse_args(["--export", "torch"]).export == "torch"
-    for fmt in ("onnx", "both"):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["--export", fmt])
+    for fmt in ("torch", "onnx", "both"):
+        assert cli.parse_args(["--export", fmt]).export == fmt
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--export", "stablehlo"])
 
 
-def test_cli_refuses_onnx_export_clearly():
-    proc = subprocess.run([sys.executable, "-m", "tpu_yolo_torch.cli.main", "--export",
-                           "onnx", "--device", "cpu"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=120)
-    assert proc.returncode == 2
-    assert "ONNX export is not ported" in proc.stderr
+def test_cli_refuses_onnx_export_clearly(tmp_path):
+    """--export onnx writes save-dir/export_n/model.onnx, which parses and
+    runs in the port's interpreter against the port's f32 forward, and
+    --export both writes it beside the torch.export program; a format
+    that is not there is refused with the choices named."""
+    from tpu_yolo_torch.utils.onnx.interp import run_graph
+    from tpu_yolo_torch.utils.onnx.parse import parse_model
+
+    cfg = get_model_config("n")
+    save_checkpoint(str(tmp_path / "best.ckpt"), {"params": init_params(1, cfg)})
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    cmd = [sys.executable, "-m", "tpu_yolo_torch.cli.main", "--device", "cpu",
+           "--input-size", "64", "--save-dir", str(tmp_path), "--export"]
+    proc = subprocess.run(cmd + ["onnx"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = tmp_path / "export_n"
+    assert sorted(os.listdir(out)) == ["model.onnx"]
+    assert proc.stdout.startswith(f"exported: {{'path': '{out / 'model.onnx'}'")
+    g, header = parse_model((out / "model.onnx").read_bytes())
+    assert header["opset"] == 17
+    x = np.random.default_rng(0).random((2, 3, 64, 64), np.float32)
+    served = YOLO.from_state_dict(cfg, from_jax_params(init_params(1, cfg), cfg))
+    with torch.no_grad():
+        want = served.fold_batchnorm()(torch.from_numpy(x).permute(0, 2, 3, 1)).numpy()
+    np.testing.assert_allclose(run_graph(g, {"images": x})["output"], want,
+                               rtol=2e-4, atol=2e-4)
+
+    (out / "model.onnx").unlink()
+    proc = subprocess.run(cmd + ["both"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert sorted(os.listdir(out)) == ["manifest.json", "model.onnx", "program.pt2"]
+    assert len(proc.stdout.strip().splitlines()) == 2
+    parse_model((out / "model.onnx").read_bytes())
+
+    proc = subprocess.run(cmd + ["tflite"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=120, env=env)
+    assert proc.returncode == 2 and "invalid choice: 'tflite'" in proc.stderr
 
 
 def test_cli_profile_and_export_on_the_cpu(tmp_path):

@@ -337,7 +337,9 @@ def test_cli_flags():
     assert cli.parse_args(["--train", "--device-augment"]).device_augment
     assert cli.parse_args(["--profile"]).profile
     assert cli.parse_args(["--export"]).export == "torch"
-    for later in (["--export", "onnx"], ["--native-train"], ["--distributed"]):
+    assert cli.parse_args(["--export", "onnx"]).export == "onnx"
+    assert cli.parse_args(["--train"]).native_train == "off"
+    for later in (["--native-train", "bilinear"], ["--distributed"]):
         with pytest.raises(SystemExit):
             cli.parse_args(later)
     with pytest.raises(SystemExit):

@@ -6,15 +6,18 @@
     python -m tpu_yolo_torch.cli.main --test --data-dir ./COCO --weights best.ckpt
     python -m tpu_yolo_torch.cli.main --profile --input-size 640
     python -m tpu_yolo_torch.cli.main --export --weights best.ckpt
+    python -m tpu_yolo_torch.cli.main --export onnx --weights best.ckpt
 
 --device-augment runs the mosaic/affine/HSV/flip augmentation on the
-device. `--profile` prints the parameter count and GFLOPs of a seeded
-model and exits; the same banner opens --train. Bare `--export` writes
-the eval forward as a `torch.export` program under
-save-dir/export_{size}; `--export onnx|both` is refused, since the ONNX
-writer is not ported yet. The native train loader and multi-process
-training or evaluation are not ported yet and their flags are not
-declared.
+device; --native-train decodes and prescales training images in the
+native C++ pool and augments them with host cv2 (auto takes it where the
+library builds and loads). `--profile` prints the parameter count and
+GFLOPs of a seeded model and exits; the same banner opens --train.
+`--export` writes the eval forward under save-dir/export_{size}: bare
+`--export` (or `torch`) a `torch.export` program, `onnx` an opset-17
+`model.onnx` (utils/onnx, no `onnx` package needed), `both` the two.
+Multi-process training or evaluation is not ported yet and its flags are
+not declared.
 """
 from __future__ import annotations
 
@@ -41,9 +44,11 @@ def parse_args(argv=None):
                         "eval/coco_eval.py) in original-image space")
     p.add_argument("--export", nargs="?", const="torch", default="",
                    choices=["torch", "onnx", "both"],
-                   help="export the eval forward (bare --export: a "
-                        "torch.export program under save-dir/export_{size}; "
-                        "onnx and both are not ported yet)")
+                   help="export the eval forward under "
+                        "save-dir/export_{size}: torch (bare --export) a "
+                        "torch.export program, onnx an opset-17 model.onnx "
+                        "(f32, symbolic batch, NCHW input in [0, 1]), both "
+                        "the two")
     p.add_argument("--profile", action="store_true",
                    help="print params + GFLOPs (torch.utils.flop_counter) "
                         "and exit")
@@ -74,6 +79,15 @@ def parse_args(argv=None):
                         "or the Python cv2 loader (off — the parity "
                         "oracle path; identical geometry either way)")
 
+    p.add_argument("--native-train", default="off",
+                   choices=["auto", "on", "off"],
+                   help="train data loader: decode + prescale in the native "
+                        "C++ pool, augmentation with host cv2 "
+                        "(data/native_train.py; prescale interpolation drawn "
+                        "per source, as the Python loader draws it). off "
+                        "(default) keeps the Python cv2 loader; auto takes "
+                        "the native one where the library builds and loads, "
+                        "else the Python one, and says why; on requires it")
     p.add_argument("--device-augment", action="store_true",
                    help="run mosaic/affine/HSV/flip augmentation on the "
                         "device (ops/augment_device.py); the host only "
@@ -101,12 +115,7 @@ def parse_args(argv=None):
                         "(lowest peak memory, interiors recompute twice)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
-    args = p.parse_args(argv)
-    if args.export in ("onnx", "both"):
-        p.error(f"--export {args.export}: the ONNX export is not ported to "
-                f"tpu_yolo_torch yet; bare --export writes the torch.export "
-                f"program")
-    return args
+    return p.parse_args(argv)
 
 
 def setup_seed(seed: int):
@@ -210,13 +219,22 @@ def main(argv=None):
 
     if args.export:
         from tpu_yolo_torch.serve import _device
-        from tpu_yolo_torch.utils.export import export_program
 
         out_dir = os.path.join(args.save_dir, f"export_{args.model_size}")
-        manifest = export_program(load_model(args, cfg).to(_device(args.device)),
-                                  cfg, args.input_size, out_dir)
-        del manifest["weights"]  # one entry per tensor: too long to print
-        print(f"exported: {out_dir} {manifest}")
+        model = load_model(args, cfg).to(_device(args.device))
+        if args.export in ("torch", "both"):
+            from tpu_yolo_torch.utils.export import export_program
+
+            manifest = export_program(model, cfg, args.input_size, out_dir)
+            del manifest["weights"]  # one entry per tensor: too long to print
+            print(f"exported: {out_dir} {manifest}")
+        if args.export in ("onnx", "both"):
+            from tpu_yolo_torch.utils.onnx import export_onnx
+
+            os.makedirs(out_dir, exist_ok=True)
+            meta = export_onnx(model, cfg, args.input_size,
+                               os.path.join(out_dir, "model.onnx"))
+            print(f"exported: {meta}")
 
 
 if __name__ == "__main__":

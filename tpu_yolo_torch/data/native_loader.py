@@ -12,7 +12,8 @@ as contiguous NHWC uint8 RGB:
     `Detector(device_letterbox=True)`;
   * `load_batch_scaled`: long side resized to the stage size (the
     `load_image` contract), for the device augmentation of
-    data/device_augment.py.
+    data/device_augment.py and, in BGR order (`bgr=True`), for the host
+    augmentation of data/native_train.py.
 A file libjpeg cannot read (PNG, BMP, ...) is decoded by cv2 and placed
 by the same fill function as the JAX package's (`fb_eval`, `fb_raw`,
 `fb_scaled` below), bit for bit.
@@ -40,11 +41,12 @@ _SO_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native", "libtpuyolo_data.so")
 
 _lib = None
+_why = None   # why the library is unavailable, once a load has failed
 _lib_lock = threading.Lock()
 
 
 def _load():
-    global _lib
+    global _lib, _why
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -52,11 +54,17 @@ def _load():
             try:  # build on first use where the toolchain and libjpeg exist
                 subprocess.run(["make", "-C", os.path.dirname(_SO_PATH)],
                                check=True, capture_output=True)
-            except (OSError, subprocess.CalledProcessError):
+            except OSError as e:
+                _why = f"make -C native could not run: {e}"
+                return None
+            except subprocess.CalledProcessError as e:
+                tail = e.stderr.decode(errors="replace").strip().splitlines()[-1:]
+                _why = f"make -C native failed: {' '.join(tail)}"
                 return None
         try:
             lib = ctypes.CDLL(_SO_PATH)
-        except OSError:  # built for another machine's libraries
+        except OSError as e:  # built for another machine's libraries
+            _why = f"{_SO_PATH} does not load: {e}"
             return None
         lib.ip_create.restype = ctypes.c_void_p
         lib.ip_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -66,7 +74,7 @@ def _load():
                   ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                   ctypes.POINTER(ctypes.c_float)]
         for fn in (lib.ip_load_batch_eval, lib.ip_load_batch_raw,
-                   lib.ip_load_batch_scaled):
+                   lib.ip_load_batch_scaled, lib.ip_load_batch_scaled_bgr):
             fn.restype = ctypes.c_int
             fn.argtypes = staged
         lib.ip_load_batch_scaled_interp.restype = ctypes.c_int
@@ -80,6 +88,12 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def why_unavailable() -> str | None:
+    """Why the native library cannot be used here (None where it loads):
+    the build's or the loader's error."""
+    return None if available() else _why
 
 
 # -- the cv2 forms of the staging contracts ---------------------------------
@@ -130,10 +144,11 @@ def fb_raw(stage: int):
     return fill
 
 
-def fb_scaled(stage: int, interps=None):
+def fb_scaled(stage: int, interps=None, bgr: bool = False):
     """The scaled contract: long side resized to the stage, up or down,
     truncated dims (the load_image contract); `interps` holds a cv2
-    interpolation code per image (None: bilinear for all)."""
+    interpolation code per image (None: bilinear for all). With bgr=True
+    cv2's BGR pixels pass through unswapped."""
     def fill(img, out_i, dims_i, i=0):
         import cv2
 
@@ -145,7 +160,7 @@ def fb_scaled(stage: int, interps=None):
             flag = cv2.INTER_LINEAR if interps is None else int(interps[i])
             img = cv2.resize(img, (sw, sh), interpolation=flag)
         out_i[:] = 0
-        out_i[:sh, :sw] = img[:, :, ::-1]
+        out_i[:sh, :sw] = img if bgr else img[:, :, ::-1]
         dims_i[:] = (sh, sw, h, w)
     return fill
 
@@ -234,21 +249,23 @@ class NativePipeline:
                             fb_raw(stage), out)
 
     def load_batch_scaled(self, paths: list[str], stage: int, interps=None,
-                          out=None):
+                          out=None, bgr: bool = False):
         """Parallel decode + resize so every image's long side == stage (up
         or down; truncated dims, the load_image contract), top-left in a
         (N, stage, stage, 3) buffer: the device-augment staging.
         `interps`: per-image cv2 interpolation codes (0 nearest / 1 linear
         / 2 cubic / 3 area / 4 lanczos4), the random-interp train
-        prescale; None means bilinear for all. Returns as
-        load_batch_raw."""
+        prescale; None means bilinear for all. bgr=True gives BGR channel
+        order (decoded straight to it), for host cv2 consumers
+        (data/native_train.py). Returns as load_batch_raw."""
+        fill = fb_scaled(stage, interps, bgr)
         if interps is None:
-            return self._staged(self._lib.ip_load_batch_scaled, paths, stage,
-                                fb_scaled(stage), out)
+            fn = (self._lib.ip_load_batch_scaled_bgr if bgr
+                  else self._lib.ip_load_batch_scaled)
+            return self._staged(fn, paths, stage, fill, out)
         codes = (ctypes.c_int * len(paths))(*[int(v) for v in interps])
         return self._staged(self._lib.ip_load_batch_scaled_interp, paths,
-                            stage, fb_scaled(stage, interps), out,
-                            extra=(codes, 0))  # 0: RGB, not BGR
+                            stage, fill, out, extra=(codes, int(bgr)))
 
 
 class Cv2Pipeline:
@@ -287,9 +304,9 @@ class Cv2Pipeline:
         return self._staged(paths, stage, fb_raw(stage), out)
 
     def load_batch_scaled(self, paths: list[str], stage: int, interps=None,
-                          out=None):
+                          out=None, bgr: bool = False):
         """NativePipeline.load_batch_scaled through cv2."""
-        return self._staged(paths, stage, fb_scaled(stage, interps), out)
+        return self._staged(paths, stage, fb_scaled(stage, interps, bgr), out)
 
 
 def staging_pipeline(input_size: int, threads: int = 8):

@@ -100,8 +100,9 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
         `compute_dtype` in place.
       loader: yields (images uint8 (B,H,W,3) numpy, targets dict)
         batches; a smaller final batch is padded to the first one's size.
-      progress: print the candidate-envelope line even when no image is
-        at risk (the JAX package also shows a progress bar here).
+      progress: show a tqdm bar named "eval" over the loader's batches
+        (on stderr) and print the candidate-envelope line even when no
+        image is at risk.
       coco_ctx: optional (eval.coco_eval.CocoEvaluator, geoms) to also
         accumulate the COCO-protocol metrics; geoms is a dataset-order
         list of ((gx, gy), (pad_w, pad_h), gt_orig (M,5), (ow, oh)) per
@@ -172,7 +173,12 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
     staging = None
     seen = 0
     pending = None  # (fetched result, targets, real batch count, base idx)
-    for i, (images, targets) in enumerate(loader):
+    batches = loader
+    if progress:
+        import tqdm
+
+        batches = tqdm.tqdm(loader, total=len(loader), desc="eval")
+    for i, (images, targets) in enumerate(batches):
         if staging is None:
             staging = [torch.empty(images.shape, dtype=torch.uint8,
                                    pin_memory=device.type == "cuda")

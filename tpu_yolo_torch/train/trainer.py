@@ -22,6 +22,10 @@ Kept from the JAX package, which keeps them from the reference:
     device (ops/augment_device.py) and the augmented batch never comes
     back to the host; the mosaic cutoff switches the loader to its
     plain (letterbox + affine) program.
+  * --native-train auto|on|off: decode and prescale in the native C++
+    pool, augmentation with host cv2 (data/native_train.py), in the host
+    loader's place; `[train] loader: native|host|device` says which
+    loader runs and, where auto fell back, why.
 """
 from __future__ import annotations
 
@@ -142,7 +146,8 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
     """Full training run; returns the final TrainState. `args` needs:
     data_dir, input_size, batch_size, epochs, save_dir, resume
     (path|None), weights (path|None), workers, model_size; optional:
-    gt_bucket, remat, remat_level, tensorboard, device_augment, seed."""
+    gt_bucket, remat, remat_level, tensorboard, device_augment,
+    native_train ("off" without it), seed."""
     device = _device(device)
     os.makedirs(args.save_dir, exist_ok=True)
     start_epoch, best = 0, 0.0
@@ -191,6 +196,9 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
             threads=args.workers, seed=getattr(args, "seed", 0),
             pin_memory=device.type == "cuda")
         print(f"[train] device augment: stager {dev_loader.stager}", flush=True)
+    loader, kind = _native_train_loader(args, hyp, filenames, cache_path, batch,
+                                        dev_loader is not None, loader)
+    print(f"[train] loader: {kind}", flush=True)
     active = loader if dev_loader is None else dev_loader
     fixed_bucket = int(getattr(args, "gt_bucket", 0) or 0)
     warned_gt_overflow = False
@@ -234,8 +242,8 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
             # than 10 epochs never cross, keeping mosaic.
             mosaic_on = args.epochs - epoch > 10 or args.epochs < 10
             dataset.mosaic = mosaic_on
-            if dev_loader is not None:
-                dev_loader.mosaic = mosaic_on and hyp.get("mosaic", 1.0) > 0
+            if hasattr(active, "mosaic"):  # DeviceAugment/NativeTrainLoader
+                active.mosaic = mosaic_on and hyp.get("mosaic", 1.0) > 0
             active.set_epoch(epoch)
 
             # Gradients are zeroed at every epoch start, which drops any
@@ -357,6 +365,39 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
         if os.path.exists(p):
             ckpt_io.strip_checkpoint(p)
     return state
+
+
+def _native_train_loader(args, hyp, filenames, cache_path, batch,
+                         device_augment: bool, host_loader):
+    """(loader, what the `[train] loader:` line says) for --native-train
+    auto|on|off: the native loader (data/native_train.py) where it is
+    asked for and the library loads; for auto without it the host loader
+    and why; for on without it an error. --device-augment stages its own
+    sources and takes neither."""
+    mode = getattr(args, "native_train", "off")
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"--native-train must be auto|on|off, got {mode!r}")
+    if device_augment:
+        if mode != "off":
+            raise ValueError("--native-train cannot be combined with "
+                             "--device-augment, which stages its own sources")
+        return host_loader, "device"
+    if mode == "off":
+        return host_loader, "host"
+    from tpu_yolo_torch.data import native_loader
+
+    if not native_loader.available():
+        if mode == "on":
+            raise RuntimeError("--native-train on requires "
+                               "native/libtpuyolo_data.so; run `make -C native`"
+                               f" ({native_loader.why_unavailable()})")
+        return host_loader, (f"host (--native-train auto: "
+                             f"{native_loader.why_unavailable()})")
+    from tpu_yolo_torch.data.native_train import NativeTrainLoader
+
+    return NativeTrainLoader(filenames, args.input_size, hyp, batch,
+                             cache_path=cache_path, threads=args.workers,
+                             seed=getattr(args, "seed", 0)), "native"
 
 
 def _run_eval(args, hyp, cfg, state, device):
