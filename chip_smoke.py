@@ -126,9 +126,92 @@ EXPORT_BATCHES = (1, 8, 128)  # phase q: batches run through one symbolic export
 TRACE_NAMES = ("tpu_yolo_torch::psa_attention", "tpu_yolo_torch::nms_greedy_keep",
                "attention_bf16_kernel", "nms_keep_kernel")
 PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
+# phase t: data parallelism. t1's epoch losses against a plain trainer's
+# (cuDNN's backward is not bit-reproducible between runs); t2's two ranks
+# of 8 (f32, one card shared through gloo) against one process of 16 at
+# tests/test_multihost.py's tolerance over the first DP_GATED_STEPS of
+# DP_STEPS, and every step within DP_LATE_RTOL relative. From the third
+# step on, v11-n's task-aligned assigner turns f32 rounding into
+# different anchor picks: the BatchNorm moments' summation order alone
+# (one process summing them in the ranks' order, also run) moves the
+# third step's losses by about 2e-3, cuDNN's algorithm choice alone (one
+# process under cudnn.benchmark, also run) by about 7e-3, and the same
+# run repeated by up to 1e-3 absolute. t3's f32 Detector over two
+# replicas at tests/test_parallel.py's box tolerance
+DP_EPOCH_LOSS_RTOL = 1e-3
+DP_GLOBAL_BATCH = 16
+DP_STEPS = 3
+DP_GATED_STEPS = 2
+DP_LOSS_TOL = 2e-4
+DP_LATE_RTOL = 1e-2
+DP_BOX_TOL = dict(rtol=1e-5, atol=1e-4)
+DP_TIMEOUT_S = 300
+# t2's witnesses: the one-process oracle under cudnn.benchmark, and the
+# oracle with ConvBN._train_norm taking its moments over each half of the
+# batch and summing them weighted by 1/2, in the order in which two ranks'
+# all-reduce sums them (the body is tpu_yolo_torch/ops/nn.py's otherwise)
+_ORACLE_CUDNN_BENCHMARK = """
+import sys, torch
+torch.backends.cudnn.benchmark = True
+from tpu_yolo_torch import rehearsal
+rehearsal.main(sys.argv[1:])
+"""
+_ORACLE_HALVES_BN = """
+import sys, torch
+from tpu_yolo_torch.ops import nn
+
+
+def _train_norm(self, y):
+    yf = y.float()
+    h = yf.shape[0] // 2
+    a, b = (torch.stack([p.mean((0, 2, 3)), p.square().mean((0, 2, 3))]) * 0.5
+            for p in (yf[:h], yf[h:]))
+    mean, sq_mean = (a + b).unbind(0)
+    n = yf.numel() // yf.shape[1]
+    var = (sq_mean - mean.square()).clamp(min=0)
+    if not getattr(nn._state, "recomputing", False):
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            self.mean.copy_((1.0 - nn.BN_MOMENTUM) * self.mean + nn.BN_MOMENTUM * mean)
+            self.var.copy_((1.0 - nn.BN_MOMENTUM) * self.var + nn.BN_MOMENTUM * unbiased)
+    scale = torch.rsqrt(var + nn.BN_EPS) * self.gamma
+    return self.act(yf * scale.view(1, -1, 1, 1)
+                    + (self.beta - mean * scale).view(1, -1, 1, 1))
+
+
+nn.ConvBN._train_norm = _train_norm
+from tpu_yolo_torch import rehearsal
+rehearsal.main(sys.argv[1:])
+"""
 
 
 _START = time.perf_counter()
+
+
+# phases n, s and t train on one seeded mini-COCO, and phase t tests on
+# phase j's labelled val split: each is written once, into one directory
+# that is removed when the script exits
+_WORK: dict = {}
+
+
+def _work_dir() -> str:
+    if "dir" not in _WORK:
+        _WORK["dir"] = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    return _WORK["dir"].name
+
+
+def _mini_coco():
+    """The seeded mini-COCO of phases n, s and t (DA_IMAGES train images,
+    480x640): (its path, the seconds it took to write, 0 after the first
+    call)."""
+    from tpu_yolo_torch.seeded import write_mini_coco
+
+    if "coco" not in _WORK:
+        t0 = time.perf_counter()
+        _WORK["coco"] = write_mini_coco(os.path.join(_work_dir(), "coco"), DA_IMAGES,
+                                        hw=(480, 640), seed=SEED + 1)
+        return _WORK["coco"], time.perf_counter() - t0
+    return _WORK["coco"], 0.0
 
 
 def emit(phase: str, **fields):
@@ -465,7 +548,7 @@ def main() -> int:
 
     # (j) the eval path: --test's run_test on a seeded val split, counted,
     # then an f32 eval of its first images on the card against the CPU
-    _eval_phase(cfg, smi, state, captured, launches)
+    val_split = _eval_phase(cfg, smi, state, captured, launches)
 
     # (k, l) the device letterbox and augmentation programs, card vs CPU
     _letterbox_phase(dev, smi)
@@ -491,7 +574,12 @@ def main() -> int:
     _train_device_augment_phase(cfg, smi, launches)
 
     # (s) the trainer with --native-train auto and --tensorboard
-    _native_train_phase(cfg, smi, launches)
+    native_epoch = _native_train_phase(cfg, smi, launches)
+
+    # (t) data parallelism: a one-rank NCCL run of --train and --test
+    # --distributed, two gloo ranks sharing the card, Detector(dp=...),
+    # the preflight
+    _data_parallel_phase(cfg, smi, state, imgs, launches, native_epoch, val_split)
 
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
@@ -717,7 +805,9 @@ def _train_f32_phase(cfg, dev, two_images):
 
 def _eval_phase(cfg, smi, state, captured, launches):
     """Phase (j). Fills captured["eval_attention"], captured["eval_nms"]
-    and launches["eval_attention"], launches["eval_nms"] (per run_test)."""
+    and launches["eval_attention"], launches["eval_nms"] (per run_test).
+    Returns the val split, the checkpoint and the first run_test's
+    (mAP, mAP50, recall, precision)."""
     import contextlib
     import io
 
@@ -782,62 +872,62 @@ def _eval_phase(cfg, smi, state, captured, launches):
         print("\n".join(lines), flush=True)
         return result, counts, lines, dict(clock)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # the val split's labels are 30 f32 detections an image of the
-        # evaluated weights (a third shifted, a third with another class),
-        # so that mAP is far from 0 and moves at every IoU threshold
-        t0 = time.perf_counter()
-        root = write_mini_coco(os.path.join(tmp, "coco"), 0, n_val=EVAL_IMAGES,
-                               hw=(480, 640), seed=SEED)
-        label_from_detections(root, YOLO.from_state_dict(cfg, state), SIZE,
-                              device="cuda")
-        ckpt = os.path.join(tmp, "serving.ckpt")
-        save_checkpoint(ckpt, {"params": to_jax_params(state)})
-        setup_s = time.perf_counter() - t0
-        args = argparse.Namespace(
-            weights=ckpt, save_dir=tmp, data_dir=root, input_size=SIZE,
-            val_batch_size=EVAL_BATCH, workers=8, native_eval="auto",
-            coco_metrics=False, plot=False, max_nms=2048, device="cuda")
-        runs = [run_test(args) for _ in range(2)]
-        result, counts, lines, _ = runs[0]
-        launches["eval_attention"] = counts["attention"]
-        launches["eval_nms"] = counts["nms"]
-        batches = -(-EVAL_IMAGES // EVAL_BATCH)
-        check(counts["nms"] == batches and counts["attention"] >= batches,
-              f"kernel launches in run_test: {counts}, {batches} batches")
-        check(all(np.isfinite(v) and 0 <= v <= 1 for v in result) and result[1] > 0,
-              f"run_test result {result}")
-        cert = [ln for ln in lines if ln.startswith("[eval] candidate envelope: ")]
-        check(len(cert) == 1 and f"/{EVAL_IMAGES} images at spill risk (budget "
-              f"K=2048," in cert[0], f"no spill certificate line: {lines}")
-        loader = [ln for ln in lines if ln.startswith("[eval] loader: ")]
-        check(len(loader) == 1, f"no loader line: {lines}")
+    tmp = os.path.join(_work_dir(), "eval")
+    # the val split's labels are 30 f32 detections an image of the
+    # evaluated weights (a third shifted, a third with another class),
+    # so that mAP is far from 0 and moves at every IoU threshold
+    t0 = time.perf_counter()
+    root = write_mini_coco(os.path.join(tmp, "coco"), 0, n_val=EVAL_IMAGES,
+                           hw=(480, 640), seed=SEED)
+    label_from_detections(root, YOLO.from_state_dict(cfg, state), SIZE,
+                          device="cuda")
+    ckpt = os.path.join(tmp, "serving.ckpt")
+    save_checkpoint(ckpt, {"params": to_jax_params(state)})
+    setup_s = time.perf_counter() - t0
+    args = argparse.Namespace(
+        weights=ckpt, save_dir=tmp, data_dir=root, input_size=SIZE,
+        val_batch_size=EVAL_BATCH, workers=8, native_eval="auto",
+        coco_metrics=False, plot=False, max_nms=2048, device="cuda")
+    runs = [run_test(args) for _ in range(2)]
+    result, counts, lines, _ = runs[0]
+    launches["eval_attention"] = counts["attention"]
+    launches["eval_nms"] = counts["nms"]
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    check(counts["nms"] == batches and counts["attention"] >= batches,
+          f"kernel launches in run_test: {counts}, {batches} batches")
+    check(all(np.isfinite(v) and 0 <= v <= 1 for v in result) and result[1] > 0,
+          f"run_test result {result}")
+    cert = [ln for ln in lines if ln.startswith("[eval] candidate envelope: ")]
+    check(len(cert) == 1 and f"/{EVAL_IMAGES} images at spill risk (budget "
+          f"K=2048," in cert[0], f"no spill certificate line: {lines}")
+    loader = [ln for ln in lines if ln.startswith("[eval] loader: ")]
+    check(len(loader) == 1, f"no loader line: {lines}")
 
-        # f32 on the card (TF32 off) against the CPU, first images
-        dataset = DetectionDataset(split_files(root, "val2017")[:EVAL_F32_IMAGES],
-                                   SIZE, hyp, augment=False)
-        outs, f32 = {}, {}
-        predict = evaluator.predict_step
-        cudnn_tf32 = torch.backends.cudnn.allow_tf32
-        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            for device in ("cuda", "cpu"):
-                def tap(*a, device=device, **kw):
-                    out = predict(*a, **kw)
-                    outs[device] = out
-                    return out
+    # f32 on the card (TF32 off) against the CPU, first images
+    dataset = DetectionDataset(split_files(root, "val2017")[:EVAL_F32_IMAGES],
+                               SIZE, hyp, augment=False)
+    outs, f32 = {}, {}
+    predict = evaluator.predict_step
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cuda", "cpu"):
+            def tap(*a, device=device, **kw):
+                out = predict(*a, **kw)
+                outs[device] = out
+                return out
 
-                evaluator.predict_step = tap
-                f32[device] = eval_fn(
-                    YOLO.from_state_dict(cfg, state),
-                    make_val_loader(dataset, EVAL_F32_IMAGES, native="off"), SIZE,
-                    compute_dtype=torch.float32, device=device)
-        finally:
-            evaluator.predict_step = predict
-            torch.backends.cudnn.allow_tf32 = cudnn_tf32
-            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+            evaluator.predict_step = tap
+            f32[device] = eval_fn(
+                YOLO.from_state_dict(cfg, state),
+                make_val_loader(dataset, EVAL_F32_IMAGES, native="off"), SIZE,
+                compute_dtype=torch.float32, device=device)
+    finally:
+        evaluator.predict_step = predict
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     rows = [_agreement(_row(outs["cuda"], i), _row(outs["cpu"], i))
             for i in range(EVAL_F32_IMAGES)]
     tuple_err = max(abs(a - b) for a, b in zip(f32["cuda"], f32["cpu"]))
@@ -860,6 +950,8 @@ def _eval_phase(cfg, smi, state, captured, launches):
         check(min(agree["match"]) >= 0.98 and agree["max_box_err_px"] <= 0.05
               and agree["max_score_err"] <= 5e-4, f"f32 eval, image {i}: {agree}")
     check(tuple_err <= 1e-4, f"f32 eval tuples: card {f32['cuda']}, cpu {f32['cpu']}")
+    # phase t tests these weights on this split beside this run_test
+    return dict(root=root, ckpt=ckpt, map_tuple=[float(v) for v in result])
 
 
 def _pixel_agreement(got, want) -> dict:
@@ -1722,7 +1814,8 @@ def _native_train_phase(cfg, smi, launches):
     --tensorboard on phase n's seeded mini-COCO (v11-n, 640 px, batch 64,
     bf16): the loader it takes and why, the top-k kernel counted; without
     the native library --native-train on must raise its message, and where
-    the library loads the native loader's img/s beside the host loader's."""
+    the library loads the native loader's img/s beside the host loader's.
+    Returns the trainer's epoch line."""
     import contextlib
     import io
 
@@ -1733,15 +1826,13 @@ def _native_train_phase(cfg, smi, launches):
     from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
     from tpu_yolo_torch.data.loader import DataLoader
     from tpu_yolo_torch.ops import topk_cuda
-    from tpu_yolo_torch.seeded import write_mini_coco
     from tpu_yolo_torch.train import trainer
 
     available = native_loader.available()
     why = native_loader.why_unavailable()
     steps = DA_IMAGES // TRAIN_BATCH
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir = write_mini_coco(os.path.join(tmp, "coco"), DA_IMAGES, hw=(480, 640),
-                                   seed=SEED + 1)
+        data_dir, _ = _mini_coco()
 
         def args(mode, name):
             return argparse.Namespace(
@@ -1819,6 +1910,7 @@ def _native_train_phase(cfg, smi, launches):
          train_s=train_s, epoch=[ln for ln in lines if ln.startswith("epoch ")][-1],
          native_on_refusal=refusal, loader_alone_img_per_s=rates,
          tensorboard=tensorboard)
+    return [ln for ln in lines if ln.startswith("epoch ")][-1]
 
 
 def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
@@ -2060,16 +2152,12 @@ def _train_device_augment_phase(cfg, smi, launches):
     from tpu_yolo_torch.data.device_augment import DeviceAugmentLoader
     from tpu_yolo_torch.data.loader import DataLoader
     from tpu_yolo_torch.ops import topk_cuda
-    from tpu_yolo_torch.seeded import write_mini_coco
     from tpu_yolo_torch.train import trainer
 
     epochs, steps = 2, DA_IMAGES // TRAIN_BATCH
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data_dir = write_mini_coco(os.path.join(tmp, "coco"), DA_IMAGES, hw=(480, 640),
-                                   seed=SEED + 1)
-        write_s = time.perf_counter() - t0
+        data_dir, write_s = _mini_coco()
         for name, device_augment, mosaic in (("host_loader", False, 1.0),
                                              ("device_mosaic", True, 1.0),
                                              ("device_plain", True, 0.0)):
@@ -2127,6 +2215,355 @@ def _train_device_augment_phase(cfg, smi, launches):
          stager=loaders["device_mosaic"].stager)
 
 
+_RANK_CHILD = r"""
+import json, os, sys, time
+
+import torch
+
+from tpu_yolo_torch.cli import main as cli
+from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
+from tpu_yolo_torch.parallel import mesh
+from tpu_yolo_torch.train import trainer
+
+out = {"rank": int(os.environ["RANK"]), "world": int(os.environ["WORLD_SIZE"])}
+events, steps = [], []
+reduce_fn, step_fn, test_fn = mesh._all_reduce, trainer.train_step, cli.run_test
+
+
+def timed_reduce(t):   # every all-reduce of the package, timed on the stream
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    r = reduce_fn(t)
+    end.record()
+    events.append((start, end, t.numel() * t.element_size()))
+    return r
+
+
+def step_tap(*a, **kw):   # the trainer reads the losses next, so the sync moves no work
+    first, t0 = len(events), time.perf_counter()
+    losses = step_fn(*a, **kw)
+    torch.cuda.synchronize()
+    steps.append((losses, time.perf_counter() - t0, first, len(events)))
+    return losses
+
+
+def test_tap(*a, **kw):
+    res = test_fn(*a, **kw)
+    out["map_tuple"] = [float(v) for v in res]
+    return res
+
+
+mesh._all_reduce, trainer.train_step, cli.run_test = timed_reduce, step_tap, test_tap
+for fn in (topk_cuda.topk_mask, attention_cuda.fused_attention, nms_cuda.greedy_keep):
+    fn.launches = 0
+t0 = time.perf_counter()
+cli.main(sys.argv[1:])
+torch.cuda.synchronize()
+out["seconds"] = time.perf_counter() - t0
+out["losses"] = [s[0].tolist() for s in steps]
+out["step_ms"] = [s[1] * 1e3 for s in steps]
+out["collectives"] = [b - a for _, _, a, b in steps]
+out["collective_ms"] = [sum(s.elapsed_time(e) for s, e, _ in events[a:b])
+                        for _, _, a, b in steps]
+out["collective_bytes"] = [sum(n for _, _, n in events[a:b]) for _, _, a, b in steps]
+out["launches"] = {"topk_mask": topk_cuda.topk_mask.launches,
+                   "psa_attention": attention_cuda.fused_attention.launches,
+                   "nms_greedy_keep": nms_cuda.greedy_keep.launches}
+out["jax_imported"] = "jax" in sys.modules
+print("RANK_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _run_group(cmd, env=None, timeout=DP_TIMEOUT_S):
+    """Run `cmd` in a session of its own and return (rc, stdout, stderr);
+    at the time limit the whole session (torchrun's workers too) is
+    killed and the phase fails."""
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: {cmd[:6]} passed its {timeout} s limit")
+    return proc.returncode, out, err
+
+
+def _epoch_mean(losses):
+    return np.asarray(losses, np.float64).mean(0)
+
+
+def _data_parallel_phase(cfg, smi, state, imgs, launches, native_epoch, val_split):
+    """Phase (t): data parallelism on the one card.
+
+    t1: `python -m torch.distributed.run --nproc-per-node 1 ... -m` style
+    runs of the CLI with --distributed (NCCL, one rank): one epoch of
+    --train --device-augment on phase n's mini-COCO beside the plain
+    trainer's epoch on the same data and seed (losses within 1e-3
+    relative), then --test on phase j's val split beside the plain --test
+    (mAP within 1e-6); top-k counted in the training rank, both eval
+    kernels in the test rank; the collectives per step, counted and timed
+    on the stream. t2: two gloo ranks sharing the card through
+    `python -m tpu_yolo_torch.rehearsal` (v11-n, 640 px, f32, global batch
+    16, 3 steps at lr 1e-3, --eval-ap) beside the one-process oracle, whose
+    eval forwards the ranks' per-device batch (--local-devices 2), and
+    two witnesses of f32 rounding, the oracle with its BatchNorm moments
+    summed in the ranks' order and the oracle under cudnn.benchmark: ranks
+    bit-equal, their losses within 2e-4 of the oracle and of the first
+    witness at the first two steps and within 1e-2 relative at every step
+    (each gap printed), mAP replicated, above 0 and within 1e-6, every
+    kernel counted in every rank. t3: Detector(dp=make_mesh(devices=["cuda:0"]))
+    bit-equal to the plain Detector at batch 128, two replicas on the card
+    at f32 against the plain f32 Detector. t4: the preflight under
+    torchrun, one rank, with --prewarm, beside t2."""
+    import re
+    import socket
+
+    import torch
+
+    from tpu_yolo_torch import make_mesh
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda
+    from tpu_yolo_torch.serve import Detector
+    from tpu_yolo_torch.train import trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- t1: one NCCL rank through the CLI --------------------------
+        # phase n's mini-COCO, phase j's val split, weights and plain --test
+        coco, _ = _mini_coco()
+        val, ckpt, plain_map = val_split["root"], val_split["ckpt"], val_split["map_tuple"]
+        child = os.path.join(tmp, "rank_child.py")
+        with open(child, "w") as f:
+            f.write(_RANK_CHILD)
+        train_argv = ["--train", "--device-augment", "--data-dir", coco,
+                      "--input-size", str(SIZE), "--batch-size", str(TRAIN_BATCH),
+                      "--epochs", "1", "--workers", "8", "--seed", str(SEED)]
+        test_argv = ["--test", "--weights", ckpt, "--data-dir", val, "--input-size",
+                     str(SIZE), "--val-batch-size", str(EVAL_BATCH), "--workers", "8"]
+
+        def rank(argv, save):
+            rc, stdout, err = _run_group(torchrun + [child, *argv, "--distributed",
+                                                     "--save-dir", save], env)
+            print(stdout, flush=True)
+            check(rc == 0, f"torchrun {argv[0]} --distributed: rc {rc}: {err[-3000:]}")
+            res = [json.loads(ln[len("RANK_RESULT "):]) for ln in stdout.splitlines()
+                   if ln.startswith("RANK_RESULT ")]
+            check(len(res) == 1 and res[0]["world"] == 1 and not res[0]["jax_imported"],
+                  f"torchrun {argv[0]}: {res}")
+            return res[0], stdout.splitlines()
+
+        dist_train, dist_lines = rank(train_argv, os.path.join(tmp, "w_dist"))
+        dist_test, _ = rank(test_argv, os.path.join(tmp, "w_test"))
+
+        plain_steps, plain_ms, step_fn = [], [], trainer.train_step
+
+        def step_tap(*a, **kw):   # timed as in the rank
+            t0 = time.perf_counter()
+            losses = step_fn(*a, **kw)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            plain_steps.append(losses.tolist())
+            return losses
+
+        trainer.train_step = step_tap
+        try:
+            plain_lines = _cli([*train_argv, "--save-dir", os.path.join(tmp, "w_plain")])
+        finally:
+            trainer.train_step = step_fn
+        print("\n".join(plain_lines), flush=True)
+
+        steps = DA_IMAGES // TRAIN_BATCH
+        dist_mean, plain_mean = _epoch_mean(dist_train["losses"]), _epoch_mean(plain_steps)
+        loss_rel = np.abs(dist_mean - plain_mean) / np.abs(plain_mean)
+        map_err = max(abs(a - b) for a, b in zip(dist_test["map_tuple"], plain_map))
+
+        def rate(lines):
+            m = [re.search(r"s, ([\d.]+) img/s\)", ln) for ln in lines
+                 if ln.startswith("epoch ")]
+            return float(m[-1].group(1)) if m and m[-1] else None
+
+        warm = slice(1, None)   # the rank's first step pays its process's warm-up
+        out["t1"] = dict(
+            steps=steps, losses_distributed=dist_train["losses"],
+            losses_plain=plain_steps, epoch_mean_distributed=dist_mean.tolist(),
+            epoch_mean_plain=plain_mean.tolist(), epoch_loss_rel_err=loss_rel.tolist(),
+            epoch_img_per_s_distributed=rate(dist_lines),
+            epoch_img_per_s_plain=rate(plain_lines),
+            phase_s_plain_trainer_epoch=native_epoch,
+            map_tuple_distributed=dist_test["map_tuple"], map_tuple_plain=plain_map,
+            map_max_abs_err=map_err, train_rank_launches=dist_train["launches"],
+            test_rank_launches=dist_test["launches"],
+            step_ms_distributed=dist_train["step_ms"], step_ms_plain=plain_ms,
+            warm_step_ms_distributed=float(np.mean(dist_train["step_ms"][warm])),
+            warm_step_ms_plain=float(np.mean(plain_ms[warm])),
+            collectives_per_step=dist_train["collectives"],
+            collective_ms_per_step=dist_train["collective_ms"],
+            warm_collective_ms_per_step=float(np.mean(dist_train["collective_ms"][warm])),
+            collective_mb_per_step=[b / 1e6 for b in dist_train["collective_bytes"]],
+            train_rank_s=dist_train["seconds"], test_rank_s=dist_test["seconds"])
+        print(f"t1 mAP tuple: --test --distributed {dist_test['map_tuple']}, "
+              f"plain --test {plain_map}", flush=True)
+        check(len(dist_train["losses"]) == len(plain_steps) == steps
+              and float(loss_rel.max()) <= DP_EPOCH_LOSS_RTOL,
+              f"t1 epoch losses: {out['t1']}")
+        check(map_err <= 1e-6 and plain_map[0] > 0, f"t1 mAP: {out['t1']}")
+        check(dist_train["launches"]["topk_mask"] >= steps
+              and min(dist_test["launches"][k] for k in
+                      ("psa_attention", "nms_greedy_keep")) > 0,
+              f"t1 kernel launches: {out['t1']}")
+        launches["dp_train_rank_topk"] = dist_train["launches"]["topk_mask"]
+        launches["dp_test_rank"] = dist_test["launches"]
+
+        # -- t2: two gloo ranks sharing the card, and one process ---------
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        # lr 1e-3: at the JAX rehearsal's 0.01 three steps of v11-n from
+        # its init amplify f32 rounding a hundredfold a step, so that a
+        # correct run and one whose BatchNorm backward skips its all-reduce
+        # both end 1e-2 from the oracle (v11-n at 320 px on the CPU); at
+        # 1e-3 the correct run ends 5.5e-5 from it and the broken one 1.6e-2
+        common = ["--device", "cuda", "--model", "n", "--size", str(SIZE),
+                  "--global-batch", str(DP_GLOBAL_BATCH), "--steps", str(DP_STEPS),
+                  "--lr", "1e-3"]
+        worker = [sys.executable, "-m", "tpu_yolo_torch.rehearsal"]
+        oracle_argv = ["--local-devices", "2", *common]
+        # f32 means f32: no TF32 in cuDNN or cuBLAS in these processes
+        env32 = dict(env, NVIDIA_TF32_OVERRIDE="0")
+        # -- t4, the preflight (one NCCL rank), runs beside t2 -------------
+        preflight = torchrun + ["-m", "tpu_yolo_torch.preflight", "--batch-size",
+                                str(TRAIN_BATCH), "--input-size", str(SIZE), "--data-dir",
+                                coco, "--prewarm"]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(6) as pool:
+            t4_run = pool.submit(_run_group, preflight, env)
+            runs = list(pool.map(lambda cmd: _run_group(cmd, env32), [
+                worker + ["--num-processes", "2", "--process-id", str(i), "--init-method",
+                          f"tcp://localhost:{port}", "--backend", "gloo", "--eval-ap",
+                          *common] for i in range(2)]
+                + [worker + ["--eval-ap", *oracle_argv],
+                   [sys.executable, "-c", _ORACLE_HALVES_BN, *oracle_argv],
+                   [sys.executable, "-c", _ORACLE_CUDNN_BENCHMARK, *oracle_argv]]))
+            t2_s = time.perf_counter() - t0
+            t4_run = t4_run.result()
+        res = []
+        for rc, stdout, err in runs:
+            check(rc == 0, f"t2 rehearsal rc {rc}: {err[-3000:]}")
+            res.append(json.loads(stdout.strip().splitlines()[-1]))
+        ranks, oracle, halves, benchmark = res[:2], res[2], res[3], res[4]
+        mine = np.asarray(ranks[0]["losses"])
+
+        def rel(losses, to):
+            want = np.asarray(to["losses"])
+            return (np.abs(np.asarray(losses) - want) / np.abs(want)).max(1).tolist()
+
+        def close(to, steps):
+            want = np.asarray(to["losses"])[:steps]
+            return (np.allclose(mine[:steps], want, rtol=DP_LOSS_TOL, atol=DP_LOSS_TOL)
+                    and max(rel(mine, to)) <= DP_LATE_RTOL)
+
+        out["t2"] = dict(seconds=t2_s, ranks=ranks, oracle=oracle,
+                         oracle_halves_bn=halves, oracle_cudnn_benchmark=benchmark,
+                         losses_rel_err_per_step=rel(mine, oracle),
+                         halves_bn_rel_err_per_step=rel(mine, halves),
+                         halves_bn_oracle_rel_err_per_step=rel(halves["losses"], oracle),
+                         cudnn_benchmark_oracle_rel_err_per_step=rel(benchmark["losses"],
+                                                                     oracle),
+                         gated_steps=DP_GATED_STEPS, late_rtol=DP_LATE_RTOL,
+                         map_abs_err=abs(ranks[0]["map"] - oracle["map"]))
+        print("t2 relative loss gap per step: ranks to the one process "
+              f"{out['t2']['losses_rel_err_per_step']}, ranks to the one process "
+              f"with the ranks' BatchNorm order {out['t2']['halves_bn_rel_err_per_step']}, "
+              "the one process under cudnn.benchmark to the one process "
+              f"{out['t2']['cudnn_benchmark_oracle_rel_err_per_step']}", flush=True)
+        check(ranks[0]["losses"] == ranks[1]["losses"]
+              and ranks[0]["state_sha256"] == ranks[1]["state_sha256"],
+              f"t2 ranks differ: {out['t2']}")
+        check(close(halves, DP_GATED_STEPS) and close(oracle, DP_GATED_STEPS),
+              f"t2 losses against one process: {out['t2']}")
+        check(ranks[0]["map"] == ranks[1]["map"] and oracle["map"] > 0
+              and abs(ranks[0]["map"] - oracle["map"]) <= 1e-6
+              and abs(ranks[0]["map50"] - oracle["map50"]) <= 1e-6,
+              f"t2 mAP: {out['t2']}")
+        check(all(min(r["launches"].values()) > 0 for r in ranks),
+              f"t2 a kernel did not run in a rank: {[r['launches'] for r in ranks]}")
+        launches["dp_rehearsal_ranks"] = [r["launches"] for r in ranks]
+
+        # -- t4: the preflight's verdict ---------------------------------
+        rc, stdout, err = t4_run
+        print(stdout, flush=True)
+        verdict = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else {}
+        out["t4"] = dict(rc=rc, verdict=verdict,
+                         lines=[ln for ln in stdout.splitlines() if ln.startswith("[")])
+        check(rc == 0 and verdict.get("ok") and set(verdict["checks"]) == {
+            "rendezvous", "devices", "topology", "batch", "gt_bucket", "prewarm"}
+              and all(verdict["checks"].values()), f"t4 preflight: {out['t4']} {err[-2000:]}")
+
+    # -- t3: Detector(dp=...) on the card ----------------------------------
+    def counted(fn):
+        attention_cuda.fused_attention.launches = 0
+        nms_cuda.greedy_keep.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"psa_attention": attention_cuda.fused_attention.launches,
+                     "nms_greedy_keep": nms_cuda.greedy_keep.launches}
+
+    plain = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+    one = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE,
+                   dp=make_mesh(devices=["cuda:0"]))
+    want = plain.detect_batch(imgs)
+    got, one_launches = counted(lambda: one.detect_batch(imgs))
+    one_equal = all(torch.equal(got[k], want[k]) for k in want)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(input_size=SIZE, compute_dtype=torch.float32)
+        plain32 = Detector(YOLO.from_state_dict(cfg, state), device="cuda", **kw)
+        two = Detector(YOLO.from_state_dict(cfg, state),
+                       dp=make_mesh(devices=["cuda:0", "cuda:0"]), **kw)
+        want32 = {k: v.cpu() for k, v in plain32.detect_batch(imgs).items()}
+        got32, two_launches = counted(lambda: two.detect_batch(imgs))
+        got32 = {k: v.cpu() for k, v in got32.items()}
+        t0 = time.perf_counter()
+        for _ in range(5):
+            two.detect_batch(imgs)
+        torch.cuda.synchronize()
+        two_img_s = 5 * BATCH / (time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    valid = want32["valid"]
+    box_err = float((got32["boxes"] - want32["boxes"])[valid].abs().max())
+    out["t3"] = dict(
+        batch=BATCH, one_replica_bit_equal=one_equal, one_replica_launches=one_launches,
+        two_replicas_counts_equal=torch.equal(got32["count"], want32["count"]),
+        two_replicas_classes_equal=torch.equal(got32["classes"], want32["classes"]),
+        two_replicas_max_box_err_px=box_err, two_replicas_launches=two_launches,
+        two_replicas_f32_img_per_s=two_img_s,
+        detections=int(want32["count"].sum()))
+    check(one_equal and min(one_launches.values()) > 0, f"t3 one replica: {out['t3']}")
+    check(out["t3"]["two_replicas_counts_equal"] and out["t3"]["two_replicas_classes_equal"]
+          and torch.allclose(got32["boxes"][valid], want32["boxes"][valid], **DP_BOX_TOL)
+          and min(two_launches.values()) > 0, f"t3 two replicas: {out['t3']}")
+    launches["dp_detector"] = two_launches
+    emit("data_parallel", nvidia_smi=smi, model="v11-n", size=SIZE,
+         thresholds=dict(t1_epoch_loss_rtol=DP_EPOCH_LOSS_RTOL, t1_map_abs=1e-6,
+                         t2_loss_tol=DP_LOSS_TOL, t2_gated_steps=DP_GATED_STEPS,
+                         t2_late_rtol=DP_LATE_RTOL,
+                         t2_map_abs=1e-6, t3_box_tol=DP_BOX_TOL),
+         **out)
+
+
 def _kernel_rows(captured, launches):
     import torch
 
@@ -2145,6 +2582,10 @@ def _kernel_rows(captured, launches):
         source="tpu_yolo_torch/csrc/attention.cu",
         replaces="tpu_yolo/ops/attention_pallas.py:66",
         launches=launches["attention"], max_abs_err=attn_err,
+        data_parallel_launches=dict(
+            t1_test_rank=launches["dp_test_rank"]["psa_attention"],
+            t2_ranks=[r["psa_attention"] for r in launches["dp_rehearsal_ranks"]],
+            t3_two_replicas=launches["dp_detector"]["psa_attention"]),
         staged_serving_launches=launches["staged_attention"],
         int8_serving_launches=launches["int8_attention"],
         export_launches=launches["export_attention"],
@@ -2173,6 +2614,10 @@ def _kernel_rows(captured, launches):
         source="tpu_yolo_torch/csrc/nms_keep.cu",
         replaces="tpu_yolo/ops/nms_pallas.py:145",
         launches=launches["nms"], staged_serving_launches=launches["staged_nms"],
+        data_parallel_launches=dict(
+            t1_test_rank=launches["dp_test_rank"]["nms_greedy_keep"],
+            t2_ranks=[r["nms_greedy_keep"] for r in launches["dp_rehearsal_ranks"]],
+            t3_two_replicas=launches["dp_detector"]["nms_greedy_keep"]),
         int8_serving_launches=launches["int8_nms"],
         **_keep_times(*captured["nms"]),
         eval_shape=dict(launches=launches["eval_nms"],
@@ -2197,6 +2642,9 @@ def _kernel_rows(captured, launches):
                    nonzero=int((x > 0).sum()), selected=int(got.sum())),
         launches=launches["topk"], device_augment_launches=launches["augment_topk"],
         native_train_launches=launches["native_train_topk"],
+        data_parallel_launches=dict(
+            t1_train_rank=launches["dp_train_rank_topk"],
+            t2_ranks=[r["topk_mask"] for r in launches["dp_rehearsal_ranks"]]),
         max_abs_err=float((got.int() - want.int()).abs().max()),
         ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K), graph=True),
         ms_with_launch=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),

@@ -28,6 +28,7 @@ from tpu_yolo.quant import calibrate as jax_calibrate
 from tpu_yolo.quant import quantize_params as jax_quantize_params
 from tpu_yolo.serve import Detector as JaxDetector
 from tpu_yolo_torch.core.config import ModelConfig, get_model_config
+from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.io.checkpoint import save_checkpoint
 from tpu_yolo_torch.io.weights import from_jax_params, to_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO, has_s2d_stem, init_params
@@ -388,9 +389,9 @@ def _rel_gaps(a: dict, b: dict) -> np.ndarray:
 
 def test_detector_quantize_matches_jax_detector(jpegs, monkeypatch):
     """Detector.quantize against tpu_yolo.serve.Detector.quantize on the
-    same JPEGs, a broken file among them, f32 serving. JAX's Detector
-    decodes through its OpenCV path here, as the port's does (its native
-    pipeline decodes other pixels).
+    same JPEGs, a broken file among them, f32 serving. Both Detectors
+    decode through their OpenCV path here, as where the native library
+    does not load (the native pipeline decodes other pixels).
 
     - The port calibrates on JAX's decoded batch with the broken file
       dropped: its quantized weights equal, bit for bit, the port's
@@ -410,6 +411,7 @@ def test_detector_quantize_matches_jax_detector(jpegs, monkeypatch):
     paths, bad = jpegs
     params, _ = _served()
     monkeypatch.setattr(jax_native_loader, "available", lambda: False)
+    monkeypatch.setattr(native_loader, "available", lambda: False)
     det = _detector(params).quantize(paths + [bad])
     ref = JaxDetector(params, JAX_TINY, input_size=SIZE,
                       compute_dtype=jnp.float32, ranking="exact")

@@ -110,11 +110,15 @@ def test_stream_equals_detect_one(detector, jpegs):
         np.testing.assert_array_equal(r["classes"], one["classes"])
 
 
-def test_decode_and_rescale_match_jax(detector, jpegs):
-    """Path decoding + letterbox equal the JAX package's OpenCV path, and
-    the rescale to original pixels equals its _emit on the same result."""
+def test_decode_and_rescale_match_jax(jpegs, monkeypatch):
+    """Path decoding + letterbox where the native library does not load
+    equal the JAX package's OpenCV path, and the rescale to original
+    pixels equals its _emit on the same result."""
     from tpu_yolo.data.image import letterbox, load_image
 
+    monkeypatch.setattr(native_loader, "available", lambda: False)
+    detector = Detector(_model(_params()), input_size=SIZE, device="cpu",
+                        compute_dtype=torch.float32, ranking="exact")
     imgs = np.zeros((len(jpegs), SIZE, SIZE, 3), np.uint8)
     metas = detector._decode_batch(jpegs, imgs)
     for i, path in enumerate(jpegs):
@@ -123,6 +127,7 @@ def test_decode_and_rescale_match_jax(detector, jpegs):
         np.testing.assert_array_equal(imgs[i], boxed[:, :, ::-1])
         np.testing.assert_allclose(
             metas[i], (ratio[0] * img.shape[1] / w, pad[0], pad[1], w, h))
+    assert detector.stager == "cv2"
 
     res = detector.detect_batch(imgs)
     mine = list(detector._emit(detector._fetch(res), metas, jpegs, True))

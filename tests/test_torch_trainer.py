@@ -339,9 +339,10 @@ def test_cli_flags():
     assert cli.parse_args(["--export"]).export == "torch"
     assert cli.parse_args(["--export", "onnx"]).export == "onnx"
     assert cli.parse_args(["--train"]).native_train == "off"
-    for later in (["--native-train", "bilinear"], ["--distributed"]):
-        with pytest.raises(SystemExit):
-            cli.parse_args(later)
+    assert cli.parse_args(["--train", "--distributed"]).distributed
+    assert not cli.parse_args(["--train"]).distributed
+    with pytest.raises(SystemExit):
+        cli.parse_args(["--native-train", "bilinear"])
     with pytest.raises(SystemExit):
         cli.parse_args(["--gt-bucket", "-1"])
 

@@ -26,8 +26,12 @@ Package layout:
   utils/   drawing detections, the profiler, the torch.export export
   cli/     `python -m tpu_yolo_torch.cli.main --train | --test | --profile
            | --export`
+  parallel/ data parallelism: the data axis, the process group and its
+           collectives (one process per card)
   quant.py int8 W8A8 calibration and quantization
   serve.py the Detector; detect.py `python -m tpu_yolo_torch.detect`
+  rehearsal.py, preflight.py  the multi-process rehearsal worker and the
+           pre-launch checks of a `--distributed` run
 """
 
 __version__ = "0.1.0"
@@ -52,6 +56,7 @@ from tpu_yolo_torch.io.weights import (  # noqa: E402
 )
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params  # noqa: E402
 from tpu_yolo_torch.ops.nms import batched_nms, nms_from_raw  # noqa: E402
+from tpu_yolo_torch.parallel import DataParallel, make_mesh  # noqa: E402
 from tpu_yolo_torch.serve import Detector  # noqa: E402
 
 __all__ = [
@@ -59,5 +64,5 @@ __all__ = [
     "load_checkpoint", "save_checkpoint", "strip_checkpoint",
     "convert_state_dict", "from_jax_params", "to_jax_params",
     "load_checkpoint_params", "load_torch_state_dict", "YOLO", "init_params",
-    "batched_nms", "nms_from_raw", "Detector",
+    "batched_nms", "nms_from_raw", "Detector", "DataParallel", "make_mesh",
 ]

@@ -16,8 +16,19 @@ GFLOPs of a seeded model and exits; the same banner opens --train.
 `--export` writes the eval forward under save-dir/export_{size}: bare
 `--export` (or `torch`) a `torch.export` program, `onnx` an opset-17
 `model.onnx` (utils/onnx, no `onnx` package needed), `both` the two.
-Multi-process training or evaluation is not ported yet and its flags are
-not declared.
+
+--distributed trains and evaluates data-parallel, one process per card,
+in the process group that torchrun's environment describes (NCCL; gloo
+with --device cpu):
+
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m tpu_yolo_torch.cli.main --train --distributed --batch-size 256
+    python -m torch.distributed.run --nproc-per-node 8 \
+        -m tpu_yolo_torch.cli.main --test --distributed --weights best.ckpt
+
+--batch-size is the global batch: each rank takes batch // world rows of
+it. Rank 0 writes the files and prints; --profile and --export run on
+rank 0 alone. `python -m tpu_yolo_torch.preflight` checks a launch first.
 """
 from __future__ import annotations
 
@@ -115,6 +126,10 @@ def parse_args(argv=None):
                         "(lowest peak memory, interiors recompute twice)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over the ranks torchrun starts, one "
+                        "process per card (NCCL), or gloo with --device cpu; "
+                        "--batch-size is then the global batch")
     return p.parse_args(argv)
 
 
@@ -150,10 +165,12 @@ def print_banner(args, cfg):
                   args.input_size)
 
 
-def run_test(args, hyp, cfg, max_images: int | None = None):
+def run_test(args, hyp, cfg, max_images: int | None = None, dp=None):
     """The --test body: load the weights, build the val2017 loader, run
-    the eval pass on one device (args.device). Returns (mAP, mAP50,
-    recall, precision)."""
+    the eval pass on one device (args.device) or, with `dp` (a
+    DataParallel over the ranks), each rank on its rows of every batch.
+    Returns (mAP, mAP50, recall, precision), the same on every rank."""
+    from tpu_yolo_torch import parallel
     from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
     from tpu_yolo_torch.data.loader import make_val_loader
     from tpu_yolo_torch.data.native_loader import NativeEvalLoader
@@ -170,11 +187,15 @@ def run_test(args, hyp, cfg, max_images: int | None = None):
                              f"val2017.first{max_images}.cache.npy")
     dataset = DetectionDataset(
         filenames, args.input_size, hyp, augment=False, cache_path=cache)
-    loader = make_val_loader(dataset, args.val_batch_size,
-                             num_workers=args.workers, native=args.native_eval)
-    print(f"[eval] loader: "
-          f"{'native' if isinstance(loader, NativeEvalLoader) else 'python'}",
-          flush=True)
+    loader = make_val_loader(
+        dataset, args.val_batch_size, num_workers=args.workers,
+        native=args.native_eval,
+        shard=None if dp is None else (dp.process_index, dp.process_count))
+    is_rank0 = parallel.rank() == 0
+    if is_rank0:
+        print(f"[eval] loader: "
+              f"{'native' if isinstance(loader, NativeEvalLoader) else 'python'}",
+              flush=True)
 
     coco_ctx = None
     if args.coco_metrics:
@@ -185,9 +206,9 @@ def run_test(args, hyp, cfg, max_images: int | None = None):
         plot_dir=args.save_dir if args.plot else None,
         names=[v for _, v in sorted(hyp["names"].items())],
         progress=True, coco_ctx=coco_ctx, max_nms=args.max_nms,
-        device=args.device)
+        device=args.device, dp=dp)
 
-    if coco_ctx is not None:
+    if coco_ctx is not None and is_rank0:
         from tpu_yolo_torch.eval.coco_eval import summarize
         print(summarize(coco_ctx[0].accumulate()))
     return result
@@ -197,27 +218,44 @@ def main(argv=None):
     args = parse_args(argv)
     setup_seed(args.seed)
 
+    from tpu_yolo_torch import parallel
+
+    dp = None
+    if args.distributed:
+        # one process per card: the data axis is the ranks, one device each
+        dp = parallel.DataParallel(parallel.make_mesh(
+            devices=[parallel.init_distributed(args.device)]))
+    try:
+        _run(args, dp, parallel.rank() == 0)
+    finally:
+        parallel.close_distributed()
+
+
+def _run(args, dp, is_rank0: bool):
     from tpu_yolo_torch.core.config import get_model_config, load_hyperparams
 
     hyp = load_hyperparams(args.hyp or None)
     cfg = get_model_config(args.model_size, num_classes=len(hyp["names"]))
 
     if args.profile:
-        print_banner(args, cfg)
+        if is_rank0:
+            print_banner(args, cfg)
         return
 
     if args.train:
         from tpu_yolo_torch.train.trainer import train
 
-        print_banner(args, cfg)
-        train(args, hyp, cfg, device=args.device)
+        if is_rank0:
+            print_banner(args, cfg)
+        train(args, hyp, cfg, device=args.device, dp=dp)
 
     if args.test:
-        m_ap, m_ap50, recall, precision = run_test(args, hyp, cfg)
-        print(f"mAP: {m_ap:.3f}  mAP@50: {m_ap50:.3f}  "
-              f"Recall: {recall:.3f}  Precision: {precision:.3f}")
+        m_ap, m_ap50, recall, precision = run_test(args, hyp, cfg, dp=dp)
+        if is_rank0:
+            print(f"mAP: {m_ap:.3f}  mAP@50: {m_ap50:.3f}  "
+                  f"Recall: {recall:.3f}  Precision: {precision:.3f}")
 
-    if args.export:
+    if args.export and is_rank0:
         from tpu_yolo_torch.serve import _device
 
         out_dir = os.path.join(args.save_dir, f"export_{args.model_size}")

@@ -15,12 +15,37 @@ import numpy as np
 from tpu_yolo_torch.data.dataset import collate
 
 
+def shard_rows(start: int, batch_size: int, n: int, shard=None) -> range:
+    """The dataset indices of the batch that starts at `start` (of `n`
+    images) that a process decodes: all of them, or with shard=(index,
+    count) the index-th of `count` contiguous equal parts of the batch
+    (empty past the end of the dataset)."""
+    if shard is None:
+        return range(start, min(start + batch_size, n))
+    index, count = shard
+    if batch_size % count:
+        raise ValueError(f"a batch of {batch_size} does not split over {count} processes")
+    lo = start + index * (batch_size // count)
+    return range(min(lo, n), min(lo + batch_size // count, n))
+
+
+def empty_batch(size: int):
+    """A batch of no images (a process's part past the end of the data)."""
+    return (np.zeros((0, size, size, 3), np.uint8),
+            {"cls": np.zeros((0, 1), np.float32), "box": np.zeros((0, 4), np.float32),
+             "idx": np.zeros((0,), np.float32)})
+
+
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, drop_last: bool = False,
-                 prefetch: int = 4, seed: int = 0, sampler=None):
+                 prefetch: int = 4, seed: int = 0, sampler=None, shard=None):
+        """`shard`: (index, count) to yield only that contiguous part of
+        each batch (shard_rows), for data-parallel eval; every process
+        then yields as many batches, some of them empty."""
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard = shard
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -53,6 +78,9 @@ class DataLoader:
                    for i in range(0, len(indices), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is not None:
+            batches = [[b[j] for j in shard_rows(0, self.batch_size, len(b), self.shard)]
+                       for b in batches]
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -64,7 +92,8 @@ class DataLoader:
                         if stop.is_set():
                             return
                         samples = list(pool.map(self.dataset.__getitem__, batch_idx))
-                        q.put(collate(samples))
+                        q.put(collate(samples) if samples
+                              else empty_batch(self.dataset.input_size))
                 finally:
                     q.put(None)
 
@@ -110,24 +139,26 @@ class ShardSampler:
 
 
 def make_val_loader(dataset, batch_size: int, num_workers: int = 8,
-                    native: str = "auto"):
+                    native: str = "auto", shard=None):
     """The eval loader over `dataset` (DetectionDataset(augment=False)),
     in dataset order. `native`: "auto" takes the native C++ pipeline
     (data/native_loader.py::NativeEvalLoader: the same label geometry,
     decode and letterbox in a GIL-free C++ pool) when its library is
     there, else the Python loader; "on" requires the native pipeline;
-    "off" takes the Python loader, the parity oracle."""
+    "off" takes the Python loader, the parity oracle. `shard`: (index,
+    count) to decode and yield only this process's contiguous part of
+    each batch (shard_rows), for evaluate(dp=...)."""
     if native not in ("auto", "on", "off"):
         raise ValueError(f"native must be auto|on|off, got {native!r}")
     if native != "off":
         from tpu_yolo_torch.data import native_loader as nl
         if nl.available():
             return nl.NativeEvalLoader(dataset, batch_size,
-                                       threads=max(num_workers, 1))
+                                       threads=max(num_workers, 1), shard=shard)
         if native == "on":
             raise RuntimeError(
                 "native eval loader requested (--native-eval on) but "
                 "native/libtpuyolo_data.so is unavailable; run "
                 "`make -C native`")
     return DataLoader(dataset, batch_size, shuffle=False,
-                      num_workers=num_workers)
+                      num_workers=num_workers, shard=shard)

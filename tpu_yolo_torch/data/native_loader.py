@@ -1,10 +1,14 @@
 """The port's ctypes binding to the native C++ data path,
 `native/libtpuyolo_data.so` (built by `make -C native` from
-`native/image_pipeline.cc`): the eval and staging halves of
+`native/image_pipeline.cc`): the counterpart of
 `tpu_yolo/data/native_loader.py`.
 
 JPEG decode + resize run in a GIL-free C++ thread pool; batches come out
 as contiguous NHWC uint8 RGB:
+  * `load_one` / `load_batch`: decode + one resize + the centred
+    letterbox, the serving geometry of `Detector`'s host decode (with
+    allow_upscale the ratio is min(S/h, S/w) unclamped, which equals
+    load_image's long-side scale then letterbox);
   * `load_batch_eval`: the eval geometry (data/image.py `load_image` +
     `letterbox(augment=False)`), for `NativeEvalLoader`;
   * `load_batch_raw`: raw pixels top-left in a (stage, stage) buffer,
@@ -70,6 +74,14 @@ def _load():
         lib.ip_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
         lib.ip_destroy.restype = None
         lib.ip_destroy.argtypes = [ctypes.c_void_p]
+        lib.ip_load_one.restype = ctypes.c_int
+        lib.ip_load_one.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)]
+        lib.ip_load_batch.restype = ctypes.c_int
+        lib.ip_load_batch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_float)]
         staged = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
                   ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
                   ctypes.POINTER(ctypes.c_float)]
@@ -102,6 +114,29 @@ def why_unavailable() -> str | None:
 # [staged_h, staged_w, orig_h, orig_w]: the JAX package's `_fb_*` closures,
 # which the native pipeline runs for a slot libjpeg failed and Cv2Pipeline
 # for every slot.
+
+def fb_letterbox(size: int, allow_upscale: bool = False):
+    """The load_batch contract for a slot libjpeg failed: one resize by
+    min(S/h, S/w) (clamped at 1 unless allow_upscale; rounded dims,
+    cv2.INTER_LINEAR), the centred round(pad -/+ 0.1) placement, RGB, and
+    meta_i = [ratio, pad_w, pad_h, orig_w, orig_h]."""
+    def fill(img, out_i, meta_i, i=0):
+        import cv2
+
+        h, w = img.shape[:2]
+        r = min(size / h, size / w)
+        if not allow_upscale:
+            r = min(r, 1.0)
+        new_w, new_h = int(round(w * r)), int(round(h * r))
+        if (new_w, new_h) != (w, h):
+            img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_LINEAR)
+        pad_w, pad_h = (size - new_w) / 2, (size - new_h) / 2
+        top, left = int(round(pad_h - 0.1)), int(round(pad_w - 0.1))
+        out_i[:] = 0
+        out_i[top:top + new_h, left:left + new_w] = img[:, :, ::-1]
+        meta_i[:] = (r, pad_w, pad_h, w, h)
+    return fill
+
 
 def fb_eval(stage: int):
     """The eval contract, a bit-identical mirror of the Python eval image
@@ -178,17 +213,20 @@ def _staging_buffer(out, n: int, stage: int) -> np.ndarray:
 
 
 class NativePipeline:
-    """Decode pipeline handle over the C++ thread pool."""
+    """Decode pipeline handle over the C++ thread pool. `allow_upscale`
+    concerns load_one/load_batch only."""
 
     stager = "native"
 
-    def __init__(self, input_size: int, threads: int = 8):
+    def __init__(self, input_size: int, threads: int = 8,
+                 allow_upscale: bool = False):
         lib = _load()
         if lib is None:
             raise RuntimeError("native library unavailable; run `make -C native`")
         self._lib = lib
         self.input_size = input_size
-        self._h = lib.ip_create(threads, input_size, 0)
+        self.allow_upscale = allow_upscale
+        self._h = lib.ip_create(threads, input_size, int(allow_upscale))
 
     def __del__(self):
         h = getattr(self, "_h", None)
@@ -226,6 +264,42 @@ class NativePipeline:
         if nfail:
             nfail = self._fallback(paths, dims[:, 0] < 0, out, dims, fill_one)
         return out, dims, int(nfail)
+
+    def load_one(self, jpeg_bytes: bytes):
+        """Decode one JPEG -> (letterboxed (S, S, 3) uint8 RGB, meta dict
+        {ratio, pad_w, pad_h, orig_w, orig_h}). Raises ValueError on bytes
+        libjpeg cannot decode."""
+        s = self.input_size
+        out = np.empty((s, s, 3), np.uint8)
+        meta = np.empty(5, np.float32)
+        rc = self._lib.ip_load_one(
+            self._h, jpeg_bytes, len(jpeg_bytes),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            meta.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if rc != 0:
+            raise ValueError("JPEG decode failed")
+        return out, {"ratio": float(meta[0]), "pad_w": float(meta[1]),
+                     "pad_h": float(meta[2]), "orig_w": int(meta[3]),
+                     "orig_h": int(meta[4])}
+
+    def load_batch(self, paths: list[str], out=None):
+        """Parallel decode + letterbox -> ((N, S, S, 3) uint8 RGB, (N, 5)
+        metas [ratio, pad_w, pad_h, orig_w, orig_h], n_failures), into
+        `out` when given. A slot libjpeg fails is decoded by cv2 and
+        placed by `fb_letterbox`; one cv2 cannot read either is zeroed
+        with meta[i, 0] == -1."""
+        s = self.input_size
+        n = len(paths)
+        out = _staging_buffer(out, n, s)
+        metas = np.empty((n, 5), np.float32)
+        arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+        nfail = self._lib.ip_load_batch(
+            self._h, arr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            metas.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if nfail:
+            nfail = self._fallback(paths, metas[:, 0] < 0, out, metas,
+                                   fb_letterbox(s, self.allow_upscale))
+        return out, metas, int(nfail)
 
     def load_batch_eval(self, paths: list[str], stage: int):
         """Parallel decode + the eval image contract in one pass:
@@ -333,9 +407,12 @@ class NativeEvalLoader:
     """
 
     def __init__(self, dataset, batch_size: int, threads: int = 8,
-                 prefetch: int = 2):
+                 prefetch: int = 2, shard=None):
+        """`shard`: (index, count) to decode and yield only that contiguous
+        part of each batch (data/loader.py::shard_rows)."""
         self.dataset = dataset          # DetectionDataset(augment=False)
         self.batch_size = batch_size
+        self.shard = shard
         self.input_size = dataset.input_size
         self.pipe = NativePipeline(self.input_size, threads=threads)
         self.prefetch = prefetch
@@ -343,8 +420,15 @@ class NativeEvalLoader:
     def __len__(self):
         return -(-len(self.dataset.filenames) // self.batch_size)
 
-    def _make_batch(self, lo: int):
-        paths = self.dataset.filenames[lo:lo + self.batch_size]
+    def _make_batch(self, start: int):
+        from tpu_yolo_torch.data.loader import empty_batch, shard_rows
+
+        rows = shard_rows(start, self.batch_size, len(self.dataset.filenames),
+                          self.shard)
+        if not rows:
+            return empty_batch(self.input_size)
+        lo = rows.start
+        paths = self.dataset.filenames[lo:rows.stop]
         images, dims, nfail = self.pipe.load_batch_eval(paths,
                                                         self.input_size)
         if nfail:

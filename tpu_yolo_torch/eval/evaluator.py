@@ -10,7 +10,12 @@
   * TP matching and AP run on the host in numpy (eval/metrics.py);
   * double-buffered: batch i+1 is staged in pinned memory and launched
     before the host matches batch i, whose result comes back into pinned
-    memory behind a CUDA event, so host matching overlaps device work.
+    memory behind a CUDA event, so host matching overlaps device work;
+  * data-parallel (`dp`, parallel/mesh.py): each process decodes and
+    forwards its contiguous rows of every (padded) val batch, split over
+    its devices; the rows' detections and GT are gathered on the host in
+    dataset order, and every process runs the same matching and AP, so
+    the mAP is replicated and equals one process's.
 
 mAP is computed in letterboxed pixel space (GT scaled by the
 letterboxed w/h), the contract of the JAX package and its reference.
@@ -20,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_yolo_torch import parallel
 from tpu_yolo_torch.eval.metrics import average_precision, match_predictions
 from tpu_yolo_torch.serve import _device, fetch_async
 
@@ -88,10 +94,20 @@ def build_coco_ctx(dataset, input_size: int):
     return CocoEvaluator(), geoms
 
 
+def _gather_rows(out: dict, gts: list, n: int):
+    """Every process's first `n` result rows and GT lists, in rank order
+    (dataset order: each holds contiguous rows of the batch)."""
+    rows = {k: v if v.ndim == 0 else v[:n] for k, v in out.items()}
+    parts = parallel.gather_objects((rows, gts))
+    out = {k: v if v.ndim == 0 else np.concatenate([p[0][k] for p in parts])
+           for k, v in rows.items()}
+    return out, [g for p in parts for g in p[1]], sum(len(p[1]) for p in parts)
+
+
 def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
              names=(), compute_dtype=torch.bfloat16, progress: bool = False,
              coco_ctx=None, envelope_stats: dict | None = None,
-             max_nms: int = 2048, device="cuda"):
+             max_nms: int = 2048, device="cuda", dp=None):
     """Run the full eval pass.
 
     Args:
@@ -116,14 +132,37 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
         max_nms=30000 budget. at_risk == 0 certifies the run's detection
         sets bit-exact against that budget.
       device: "cuda" (default; raises without a card) or "cpu".
+      dp: a parallel Mesh or DataParallel; its devices replace `device`. The
+        loader then yields this process's rows of each batch
+        (make_val_loader(shard=(process_index, process_count))), which
+        are padded to batch_size / process_count and split over the
+        process's devices; the envelope certificate counts every
+        process's images. With a process group every rank must call it.
     Returns:
       (mAP, mAP50, recall, precision). COCO results are read from the
       collector by the caller.
     """
-    device = _device(device)
-    model = model.fold_batchnorm().to(
-        device=device, dtype=compute_dtype,
-        memory_format=torch.channels_last).eval()
+    dp = parallel.as_data_parallel(dp)
+    devices = [_device(d) for d in (dp.devices if dp is not None else [device])]
+    device = devices[0]
+    model = model.fold_batchnorm()
+    replicas = [m.to(device=d, dtype=compute_dtype,
+                     memory_format=torch.channels_last).eval()
+                for m, d in zip(dp.replicate(model) if dp is not None else [model],
+                                devices)]
+    rows = None   # this process's padded rows of a batch, under dp
+    if dp is not None:
+        shard = (dp.process_index, dp.process_count)
+        if dp.process_count > 1 and getattr(loader, "shard", None) != shard:
+            raise ValueError(f"evaluate(dp=...) over {dp.process_count} processes "
+                             f"takes a loader of this process's rows, "
+                             f"make_val_loader(shard={shard})")
+        rows = loader.batch_size // dp.process_count
+        if loader.batch_size % dp.num_data_shards:
+            raise ValueError(f"a val batch of {loader.batch_size} does not split "
+                             f"over {dp.num_data_shards} data shards")
+    if parallel.rank() != 0:
+        progress, plot_dir = False, None
 
     all_tp, all_conf, all_pcls, all_tcls = [], [], [], []
     env = {"images": 0, "at_risk": 0, "max_above_conf": 0, "budget": 0}
@@ -133,6 +172,10 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
         if done is not None:
             done.synchronize()
         out = {k: v.numpy() for k, v in out.items()}
+        gts = [_gt_pixel_boxes(targets, b, (input_size, input_size))
+               for b in range(n)]
+        if dp is not None:
+            out, gts, n = _gather_rows(out, gts, n)
         if "n_above_conf" in out and n:
             env["budget"] = int(out["candidate_budget"])
             na = np.asarray(out["n_above_conf"])[:n]
@@ -155,7 +198,7 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
                 d[:, [0, 2]] = np.clip((d[:, [0, 2]] - pw) / gx, 0, ow)
                 d[:, [1, 3]] = np.clip((d[:, [1, 3]] - ph) / gy, 0, oh)
                 coll.add_image(d, gt_orig)
-            gt = _gt_pixel_boxes(targets, b, (input_size, input_size))
+            gt = gts[b]
             if cnt == 0:
                 if gt.shape[0]:
                     all_tcls.append(gt[:, 0])
@@ -170,6 +213,9 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
     # asynchronously; that buffer is written again for batch i + 2, after
     # batch i's result (copied back behind its event, which follows the
     # input's copy in stream order) has been consumed.
+    # Under dp the base index of a batch is the global count of the images
+    # before it: the batch size times its index, as every batch but the
+    # last is full.
     staging = None
     seen = 0
     pending = None  # (fetched result, targets, real batch count, base idx)
@@ -180,20 +226,23 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
         batches = tqdm.tqdm(loader, total=len(loader), desc="eval")
     for i, (images, targets) in enumerate(batches):
         if staging is None:
-            staging = [torch.empty(images.shape, dtype=torch.uint8,
+            shape = (rows or images.shape[0], *images.shape[1:])
+            staging = [torch.empty(shape, dtype=torch.uint8,
                                    pin_memory=device.type == "cuda")
                        for _ in range(2)]
         n = images.shape[0]
         host = staging[i % 2]
         host[:n].copy_(torch.from_numpy(images))
         host[n:] = 0  # pad the final batch: one shape throughout
-        out = fetch_async(predict_step(
-            model, host.to(device, non_blocking=True),
-            compute_dtype=compute_dtype, max_nms=max_nms))
+        parts = (dp.shard_batch(host) if dp is not None
+                 else [host.to(device, non_blocking=True)])
+        res = [predict_step(m, x, compute_dtype=compute_dtype, max_nms=max_nms)
+               for m, x in zip(replicas, parts)]
+        out = fetch_async(dp.gather(res) if dp is not None else res[0])
         if pending is not None:
             consume(*pending)
         pending = (out, targets, n, seen)
-        seen += n
+        seen = (i + 1) * loader.batch_size if dp is not None else seen + n
     if pending is not None:
         consume(*pending)
 

@@ -28,6 +28,12 @@ def make_anchors(input_hw: tuple[int, int], strides=(8, 16, 32), offset: float =
     return np.concatenate(anchor_list), np.concatenate(stride_list)
 
 
+def num_anchors(input_hw: tuple[int, int], strides=(8, 16, 32)) -> int:
+    """The number of anchors of make_anchors(input_hw, strides)."""
+    h, w = input_hw
+    return sum((h // s) * (w // s) for s in strides)
+
+
 @functools.lru_cache(maxsize=16)
 def device_anchors(input_hw: tuple[int, int], strides, device: torch.device):
     """make_anchors as tensors on `device`, built once per (input_hw,

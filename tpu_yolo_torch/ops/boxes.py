@@ -13,6 +13,12 @@ def xywh_to_xyxy(box):
     return torch.stack((cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2), -1)
 
 
+def xyxy_to_xywh(box):
+    """(x1, y1, x2, y2) -> (cx, cy, w, h), any leading dims."""
+    x1, y1, x2, y2 = box.unbind(-1)
+    return torch.stack(((x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1), -1)
+
+
 def box_iou_pairwise(a, b, eps: float = 1e-7):
     """Plain IoU between all pairs: a (..., N, 4) x b (..., M, 4) -> (..., N, M)."""
     a1, a2 = a[..., :, None, :2], a[..., :, None, 2:]

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from tpu_yolo_torch.ops.anchors import device_anchors
@@ -166,6 +167,21 @@ def nms_from_raw(raw_maps, cfg, input_hw, conf_thres: float = 0.001,
         res["candidate_budget"] = torch.tensor(k, dtype=torch.int32,
                                                device=logits.device)
     return res
+
+
+def nms_to_numpy(result, image_index: int) -> np.ndarray:
+    """One image's detections of a batched NMS result (tensors on any
+    device, or arrays) as a dense (N, 6) float32 array [x1, y1, x2, y2,
+    score, cls], the reference's per-image output."""
+    def host(v):
+        return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    n = int(result["count"][image_index])
+    out = np.zeros((n, 6), dtype=np.float32)
+    out[:, :4] = host(result["boxes"][image_index][:n])
+    out[:, 4] = host(result["scores"][image_index][:n])
+    out[:, 5] = host(result["classes"][image_index][:n])
+    return out
 
 
 def _suppress(cand_boxes, top_scores, cls_idx, *, conf_thres, iou_thres,

@@ -35,6 +35,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from tpu_yolo_torch import parallel
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
@@ -186,13 +188,30 @@ class ConvBN(nn.Module):
     def _train_norm(self, y):
         """BatchNorm over the batch and the activation, in f32: biased
         variance (clipped at 0) for the normalize, unbiased for the
-        running update with momentum 0.03."""
+        running update with momentum 0.03.
+
+        In a process group the batch is the global one: each rank's
+        per-channel moments E[y] and E[y²], weighted by its share of the
+        batch, are summed over the ranks in one differentiable all-reduce
+        (parallel/mesh.py), and the count is the global one. The ranks
+        hold equal shares (the trainer splits the batch evenly), so the
+        weight is 1/world and the global count n·world, known on the host
+        without a collective; the weight is exact at world 1, where the
+        result equals the no-group one bit for bit. A recomputation under
+        remat reduces too: every rank recomputes the same regions in the
+        same order."""
         yf = y.float()
         mean = yf.mean((0, 2, 3))
-        var = (yf.square().mean((0, 2, 3)) - mean.square()).clamp(min=0)
+        sq_mean = yf.square().mean((0, 2, 3))
+        n = yf.numel() // yf.shape[1]
+        if parallel.is_distributed():
+            world = parallel.world_size()
+            mean, sq_mean = parallel.all_reduce_sum(
+                torch.stack([mean, sq_mean]) * (1.0 / world)).unbind(0)
+            n *= world
+        var = (sq_mean - mean.square()).clamp(min=0)
         if not getattr(_state, "recomputing", False):
             with torch.no_grad():
-                n = yf.numel() // yf.shape[1]
                 unbiased = var * (n / max(n - 1, 1))
                 # in place: the buffers keep their identity for the EMA
                 # and the state dict

@@ -1,17 +1,21 @@
 """Serving pipeline: uint8 images or paths -> detections (counterpart of
 `tpu_yolo/serve.py`).
 
-  host:    decode + letterbox with OpenCV in a thread pool (paths only);
-           with device_letterbox=True, decode only: raw pixels top-left
-           in a (stage_size, stage_size) buffer, through the native C++
-           pool or, where it cannot be built, cv2 (data/native_loader.py);
+  host:    decode + letterbox (paths only) in the native C++ pool
+           (data/native_loader.py) or, where it cannot be built, with
+           OpenCV in a thread pool; with device_letterbox=True, decode
+           only: raw pixels top-left in a (stage_size, stage_size)
+           buffer, through the same pool or cv2. `stager` names it;
   device:  [letterbox (ops/letterbox.py)] -> /255 in the compute dtype ->
            YOLO.forward_raw -> nms_from_raw, on the card unless the caller
            passes device="cpu";
   overlap: `stream` double-buffers: batch i+1 is staged in pinned host
            memory and copied with non_blocking=True while batch i runs,
            and each result comes back through its own pinned buffer and
-           CUDA event, so the host waits only on the result it emits.
+           CUDA event, so the host waits only on the result it emits;
+  dp:      with `dp` (parallel/mesh.py) a replica per device of the data
+           axis: each batch is split into contiguous equal parts, one per
+           device, and the results are gathered in order.
 
 Boxes are returned in original-image pixel coordinates by inverting the
 letterbox transform ((xy - pad) / ratio), clipped to the image.
@@ -42,6 +46,7 @@ from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.letterbox import letterbox_batch
 from tpu_yolo_torch.ops.nn import ConvBN
+from tpu_yolo_torch.parallel.mesh import as_data_parallel
 from tpu_yolo_torch.utils.export import WeightsAsInputs
 
 EXPORT_FORMAT = "tpu_yolo_torch-export-v1"
@@ -82,7 +87,7 @@ class Detector:
                  ranking: str = "approx", max_nms: int | None = None,
                  multi_label: bool | None = None, latency_mode: bool = False,
                  device_letterbox: bool = False, stage_size: int = 960,
-                 decode_threads: int = 8, device="cuda"):
+                 decode_threads: int = 8, device=None, dp=None):
         """The Detector takes `model` over: it folds its BatchNorm and
         moves it to `device` and `compute_dtype` in place.
 
@@ -100,13 +105,28 @@ class Detector:
         ratio is folded into the returned boxes per axis. `stager` then
         says which decoder staged them ("native" or "cv2").
         `decode_threads`: host threads that decode (and stage) images.
-        `device`: "cuda" (default) or "cpu"; raises without a card unless
-        the CPU is asked for."""
+        `device`: "cuda" (the default) or "cpu"; raises without a card
+        unless the CPU is asked for.
+        `dp`: a parallel Mesh or DataParallel of this process's devices
+        (make_mesh(devices=[...]), repeats allowed): a replica of the
+        model on each, every batch split into contiguous equal parts over
+        them (a batch that does not divide is refused) and the results
+        gathered in order on the first, which is the Detector's device
+        (`device` must then be it or None)."""
         if max_nms is None:
             max_nms = 256 if latency_mode else 1024
         if multi_label is None:
             multi_label = not latency_mode
-        self.device = _device(device)
+        dp = as_data_parallel(dp)
+        if dp is not None:
+            if device is not None and torch.device(device) != dp.devices[0]:
+                raise ValueError(f"device={device!r} is not the first device of "
+                                 f"dp, {dp.devices[0]}")
+            for d in dp.devices:
+                _device(d)
+            device = dp.devices[0]
+        self.device = _device("cuda" if device is None else device)
+        self._dp = dp
         self.cfg = model.cfg
         self.input_size = input_size
         self.compute_dtype = compute_dtype
@@ -114,8 +134,10 @@ class Detector:
         self.stage_size = stage_size
         self.decode_threads = decode_threads
         self._stager = None  # the staging pipeline, made at first use
+        self._host_pipe = None  # the host letterbox pipeline, made at first use
         self._fixed_batch = None  # set by load_compiled
         self.model = self._place(model)
+        self._replicas = dp.replicate(self.model) if dp is not None else None
         self._nms = dict(conf_thres=conf_thres, iou_thres=iou_thres,
                          max_det=max_det, ranking=ranking, max_nms=max_nms,
                          multi_label=multi_label)
@@ -157,6 +179,8 @@ class Detector:
         if not len(imgs):
             raise ValueError("Detector.quantize: no calibration image decoded")
         self.model = self._place(quantize_model(self.model, imgs, margin))
+        if self._dp is not None:
+            self._replicas = self._dp.replicate(self.model)
         return self
 
     @classmethod
@@ -171,36 +195,26 @@ class Detector:
 
     # -- host decode ------------------------------------------------------
     def _decode_batch(self, paths: list[str], out: np.ndarray):
-        """Decode + letterbox `paths` into `out` (N, S, S, 3) uint8 RGB.
-        Returns (N, 5) metas [ratio, pad_w, pad_h, orig_w, orig_h], -1
-        for an image that failed to decode."""
-        import cv2
-
-        from tpu_yolo_torch.data.image import letterbox, load_image
-
-        metas = np.full((len(paths), 5), -1, np.float32)
-
-        def decode(i):
-            try:
-                img, (h, w) = load_image(paths[i], self.input_size)
-                boxed, ratio, pad = letterbox(img, self.input_size)
-            except (OSError, cv2.error):
-                out[i] = 0
-                return
-            out[i] = boxed[:, :, ::-1]
-            # load_image pre-scales (long side -> input_size); fold that
-            # and the letterbox ratio into one original->net scale
-            metas[i] = (ratio[0] * img.shape[1] / w, pad[0], pad[1], w, h)
-
-        with ThreadPoolExecutor(self.decode_threads) as pool:
-            list(pool.map(decode, range(len(paths))))
-        return metas
+        """Decode + letterbox `paths` into the first rows of `out` (N, S,
+        S, 3) uint8 RGB, through the native pool where it loads (the
+        ratio unclamped: load_image's long-side scale then the letterbox,
+        in one resize), else cv2's load_image + letterbox, as the JAX
+        package's Detector does. Returns (N, 5) metas [ratio, pad_w,
+        pad_h, orig_w, orig_h], -1 for an image that failed to decode."""
+        if self._host_pipe is None:
+            self._host_pipe = (native_loader.NativePipeline(
+                self.input_size, threads=self.decode_threads, allow_upscale=True)
+                if native_loader.available()
+                else _Cv2Letterbox(self.input_size, self.decode_threads))
+        return self._host_pipe.load_batch(paths, out=out[:len(paths)])[1]
 
     @property
     def stager(self) -> str | None:
-        """The decoder of the staged path, "native" or "cv2" (None before
-        its first batch)."""
-        return self._stager.stager if self._stager is not None else None
+        """The decoder of image paths, "native" or "cv2": the staged
+        path's with device_letterbox, else the host letterbox's (None
+        before its first batch)."""
+        pipe = self._stager if self.device_letterbox else self._host_pipe
+        return pipe.stager if pipe is not None else None
 
     def _decode_batch_raw(self, paths: list[str], out: np.ndarray):
         """Raw decode of `paths` into the staging buffer `out` (N, St, St,
@@ -234,27 +248,36 @@ class Detector:
         return metas
 
     # -- inference --------------------------------------------------------
-    def _program(self, x_u8):
+    def _program(self, x_u8, model=None):
         """The serving program: uint8 (B, S, S, 3) -> /255 in the compute
-        dtype -> forward -> NMS."""
+        dtype -> forward -> NMS, on `model` (the Detector's by default)."""
         x = x_u8.to(self.compute_dtype) / 255
-        return self.model.forward_nms(x, **self._nms)
+        return (self.model if model is None else model).forward_nms(x, **self._nms)
 
-    def _program_staged(self, staged_u8, hw):
+    def _program_staged(self, staged_u8, hw, model=None):
         """The device-letterbox program: raw staged uint8 (B, St, St, 3)
         and true sizes (B, 2) -> letterbox (the single-resize serving
         geometry) -> /255 -> forward -> NMS."""
         boxed, _ = letterbox_batch(staged_u8, hw, out_size=self.input_size,
                                    allow_upscale=True)
-        return self._program(boxed)
+        return self._program(boxed, model)
+
+    def _run(self, program, *inputs):
+        """program(*inputs) with the inputs (on the host or the device) on
+        the Detector's device or, with dp, split over its devices, one
+        replica each, the results gathered in order on the first."""
+        with torch.inference_mode():
+            if self._dp is None:
+                return program(*(x.to(self.device, non_blocking=True) for x in inputs))
+            parts = zip(*(self._dp.shard_batch(x) for x in inputs))
+            return self._dp.gather([program(*p, model=m)
+                                    for p, m in zip(parts, self._replicas)])
 
     def _predict(self, x_u8):
-        with torch.inference_mode():
-            return self._program(x_u8)
+        return self._run(self._program, x_u8)
 
     def _predict_staged(self, staged_u8, hw):
-        with torch.inference_mode():
-            return self._program_staged(staged_u8, hw)
+        return self._run(self._program_staged, staged_u8, hw)
 
     def detect_batch(self, images_u8):
         """(B, S, S, 3) uint8 RGB (numpy or torch) -> result dict of
@@ -269,7 +292,7 @@ class Detector:
                 f"this Detector runs a saved program exported for "
                 f"batch_size={self._fixed_batch}; got a batch of {len(x)} "
                 f"(pad it, or save_compiled at this size)")
-        return self._predict(x.to(self.device, non_blocking=True))
+        return self._predict(x)
 
     # -- saved serving program --------------------------------------------
     def _weights_spec(self) -> dict:
@@ -304,7 +327,13 @@ class Detector:
         staged flag, batch, model config, construction knobs, the
         weights' spec and the torch/CUDA/device environment) and
         `program.pt2` (`torch.export.save`). It runs only where it was
-        made: `load_compiled` checks the environment."""
+        made: `load_compiled` checks the environment. A Detector with dp
+        raises: its program spans several devices."""
+        if self._dp is not None:
+            raise NotImplementedError(
+                "save_compiled exports the one-device serving program; a "
+                "Detector(dp=...) runs a replica per device: save_compiled a "
+                "Detector without dp")
         spec = self._weights_spec()
         program = WeightsAsInputs(_ServingProgram(self))
         weights = tuple(self.model.state_dict().values())
@@ -392,7 +421,8 @@ class Detector:
 
         def run(*inputs):
             with torch.inference_mode():
-                return program(weights, *inputs)
+                return program(weights, *(x.to(device, non_blocking=True)
+                                          for x in inputs))
 
         if meta["staged"]:
             det._predict_staged = run
@@ -445,6 +475,9 @@ class Detector:
         if self._fixed_batch is not None:
             batch_size = self._fixed_batch
         paths = list(paths)
+        if self._dp is not None and batch_size % len(self._dp.devices):
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{len(self._dp.devices)} devices")
         staged = self.device_letterbox
         s = self.stage_size if staged else self.input_size
         pin = self.device.type == "cuda"
@@ -466,11 +499,10 @@ class Detector:
                 hw = sizes[n % 2]
                 hw[:len(chunk)] = torch.from_numpy(np.maximum(dims[:, :2], 1.0))
                 hw[len(chunk):] = 1.0
-                res = self._predict_staged(host.to(self.device, non_blocking=True),
-                                           hw.to(self.device, non_blocking=True))
+                res = self._predict_staged(host, hw)
             else:
                 metas = self._decode_batch(chunk, host.numpy())
-                res = self._predict(host.to(self.device, non_blocking=True))
+                res = self._predict(host)
             res = self._fetch(res)
             if pending is not None:
                 yield from self._emit(*pending, rescale)
@@ -511,6 +543,41 @@ def _environment(device: torch.device) -> dict:
                             if device.type == "cuda" else "cpu"),
             "torch_version": torch.__version__,
             "cuda_version": torch.version.cuda}
+
+
+class _Cv2Letterbox:
+    """NativePipeline.load_batch's contract through cv2, for a machine
+    where the native library cannot be built: load_image + letterbox per
+    image in a thread pool (cv2 releases the GIL)."""
+
+    stager = "cv2"
+
+    def __init__(self, input_size: int, threads: int):
+        self.input_size, self.threads = input_size, threads
+
+    def load_batch(self, paths: list[str], out: np.ndarray):
+        import cv2
+
+        from tpu_yolo_torch.data.image import letterbox, load_image
+
+        s = self.input_size
+        metas = np.full((len(paths), 5), -1, np.float32)
+
+        def decode(i):
+            try:
+                img, (h, w) = load_image(paths[i], s)
+                boxed, ratio, pad = letterbox(img, s)
+            except (OSError, cv2.error):
+                out[i] = 0
+                return
+            out[i] = boxed[:, :, ::-1]
+            # load_image pre-scales (long side -> input_size); fold that
+            # and the letterbox ratio into one original->net scale
+            metas[i] = (ratio[0] * img.shape[1] / w, pad[0], pad[1], w, h)
+
+        with ThreadPoolExecutor(self.threads) as pool:
+            list(pool.map(decode, range(len(paths))))
+        return out, metas, int((metas[:, 0] < 0).sum())
 
 
 class _ServingProgram(torch.nn.Module):

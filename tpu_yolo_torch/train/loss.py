@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_yolo_torch import parallel
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.boxes import ciou, dfl_expectation
@@ -184,7 +185,9 @@ def detection_loss(raw_maps, gt, hyp: dict, cfg: ModelConfig):
       hyp: dict with 'box'/'cls'/'dfl' gains.
     Returns:
       (loss_box, loss_cls, loss_dfl) scalars (sum / max(target_scores_sum,
-      1), gains applied).
+      1), gains applied). In a process group the sums are this rank's and
+      target_scores_sum is the global batch's, so the ranks' losses sum
+      to the global batch's.
     """
     nc, reg = cfg.num_classes, cfg.reg_max
     bsz = raw_maps[0].shape[0]
@@ -217,7 +220,10 @@ def detection_loss(raw_maps, gt, hyp: dict, cfg: ModelConfig):
         torch.sigmoid(pred_cls.detach()), pred_boxes.detach() * stride_t,
         anchors * stride_t, gt_labels, gt_bboxes, mask_gt, num_classes=nc)
 
-    tss = target_scores.sum().clamp(min=1.0)
+    # over the global batch in a process group: the clamp is the global
+    # sum's (parallel/mesh.py); no gradient flows, the assigner's inputs
+    # are detached
+    tss = parallel.all_reduce_sum(target_scores.sum()).clamp(min=1.0)
 
     # classification: BCE with logits, sum over everything
     bce = (pred_cls.clamp(min=0) - pred_cls * target_scores

@@ -13,7 +13,16 @@ of `tpu_yolo/train/step.py`).
   * the EMA runs over the full float state (parameters and BN buffers)
     after each optimizer step;
   * the loss is a batch sum / sum(target_scores), scaled once by the
-    batch size.
+    batch size;
+  * in a process group (parallel/mesh.py) the batch is the global one:
+    each rank differentiates its own sums over the global
+    sum(target_scores), scaled by the global batch, and the gradients and
+    the reported losses are summed over the ranks in one all-reduce per
+    micro-step, before they reach the accumulation buffer, where the JAX
+    package's SPMD step has XLA's psum. The update, the momentum and the
+    EMA then run alike on every rank. The model is not wrapped in
+    DistributedDataParallel: its reducer fires from hooks on gradient
+    accumulation into `.grad`, which `torch.autograd.grad` never reaches.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import dataclasses
 
 import torch
 
+from tpu_yolo_torch import parallel
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.train import optim
@@ -61,15 +71,21 @@ def loss_and_grads(model: YOLO, images_u8, gt, hyp_gains, *, cfg: ModelConfig,
     """Losses and parameter gradients of one training forward/backward:
     ((loss_box, loss_cls, loss_dfl), {name: grad}). The loss that is
     differentiated is their sum times the batch size. As a training
-    forward does, it updates the model's BN running statistics."""
+    forward does, it updates the model's BN running statistics.
+
+    In a process group `images_u8` and `gt` are this rank's equal share of
+    the global batch, and the losses and gradients returned are the
+    global batch's, the same on every rank."""
     x = images_u8.to(compute_dtype) / 255
     raw = model.forward_raw(x, remat=remat)
     hyp = {"box": hyp_gains[0], "cls": hyp_gains[1], "dfl": hyp_gains[2]}
     lb, lc, ld = detection_loss(raw, gt, hyp, cfg)
     params = dict(model.named_parameters())
-    grads = torch.autograd.grad((lb + lc + ld) * images_u8.shape[0],
-                                list(params.values()))
-    return (lb.detach(), lc.detach(), ld.detach()), dict(zip(params, grads))
+    batch = images_u8.shape[0] * parallel.world_size()
+    grads = torch.autograd.grad((lb + lc + ld) * batch, list(params.values()))
+    losses = torch.stack([lb, lc, ld]).detach()
+    parallel.all_reduce_flat_([*grads, losses])
+    return tuple(losses.unbind(0)), dict(zip(params, grads))
 
 
 def train_step(state: TrainState, images_u8, gt, lr: float, hyp_gains,

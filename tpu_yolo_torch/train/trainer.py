@@ -26,6 +26,13 @@ Kept from the JAX package, which keeps them from the reference:
     pool, augmentation with host cv2 (data/native_train.py), in the host
     loader's place; `[train] loader: native|host|device` says which
     loader runs and, where auto fell back, why.
+  * data parallelism (`dp`, one process per card, parallel/mesh.py):
+    each rank trains on batch // world rows of every global batch, drawn
+    by ShardSampler (or the device-augment and native loaders'
+    shard/num_shards); accumulate and weight decay follow the global
+    batch. Rank 0's state is broadcast once at the start; rank 0 alone
+    writes step.csv, tensorboard, lr.png and the checkpoints and runs the
+    per-epoch eval, while the others wait at a barrier after each epoch.
 """
 from __future__ import annotations
 
@@ -36,9 +43,10 @@ import time
 import numpy as np
 import torch
 
+from tpu_yolo_torch import parallel
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
-from tpu_yolo_torch.data.loader import DataLoader, make_val_loader
+from tpu_yolo_torch.data.loader import DataLoader, ShardSampler, make_val_loader
 from tpu_yolo_torch.eval.evaluator import evaluate
 from tpu_yolo_torch.io import checkpoint as ckpt_io
 from tpu_yolo_torch.io.weights import (from_jax_params, load_checkpoint_params,
@@ -142,19 +150,50 @@ def augment_on_device(batch, device: torch.device, size: int):
     return images, targets
 
 
-def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
+def rank_batch(batch_size: int, world: int) -> int:
+    """Each rank's rows of a global batch. ConvBN weights every rank's
+    moments by 1/world, so the ranks must hold equal shares: an uneven
+    split is refused (train() also checks every step's rows)."""
+    if batch_size < world or batch_size % world:
+        raise ValueError(f"global {batch_size} -> {batch_size // world} a rank over "
+                         f"{world} ranks (NOT EVEN: {batch_size % world} images of "
+                         f"every batch would be dropped)")
+    return batch_size // world
+
+
+def train(args, hyp: dict, cfg: ModelConfig, device="cuda", dp=None):
     """Full training run; returns the final TrainState. `args` needs:
-    data_dir, input_size, batch_size, epochs, save_dir, resume
+    data_dir, input_size, batch_size (global), epochs, save_dir, resume
     (path|None), weights (path|None), workers, model_size; optional:
     gt_bucket, remat, remat_level, tensorboard, device_augment,
-    native_train ("off" without it), seed."""
+    native_train ("off" without it), seed. `dp`: a DataParallel over the
+    ranks of the process group (parallel/mesh.py), one device each, which
+    then is this rank's device. The BatchNorm, loss and gradient
+    all-reduces follow the process group, so `dp` must span it: it is
+    required in a group and refused without one."""
     device = _device(device)
+    world, rank = 1, 0
+    if dp is None and parallel.is_distributed():
+        raise ValueError(f"this process is a rank of a group of "
+                         f"{parallel.world_size()}: pass dp=DataParallel(make_mesh()) "
+                         "so that every rank trains its own rows")
+    if dp is not None:
+        if len(dp.devices) != 1 or dp.devices[0].type != device.type:
+            raise ValueError(f"data-parallel training takes one {device.type} "
+                             f"device per process, got {dp.devices}")
+        if (dp.process_count, dp.process_index) != (parallel.world_size(),
+                                                    parallel.rank()):
+            raise ValueError(f"dp spans {dp.process_count} processes (this one "
+                             f"{dp.process_index}), the process group "
+                             f"{parallel.world_size()} (this one {parallel.rank()})")
+        device, world, rank = _device(dp.devices[0]), dp.process_count, dp.process_index
+    is_rank0 = rank == 0
     os.makedirs(args.save_dir, exist_ok=True)
     start_epoch, best = 0, 0.0
 
-    batch = args.batch_size
-    accumulate = max(round(64 / batch), 1)
-    wd = hyp["weight_decay"] * batch * accumulate / 64
+    batch = rank_batch(args.batch_size, world)   # this rank's rows
+    accumulate = max(round(64 / args.batch_size), 1)
+    wd = hyp["weight_decay"] * args.batch_size * accumulate / 64
 
     # --- model + state ------------------------------------------------
     state = None
@@ -179,14 +218,21 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
         model = YOLO.from_state_dict(cfg, sd).to(
             device=device, memory_format=torch.channels_last)
         state = init_train_state(model, ema=True, accumulate=accumulate)
+    # every rank starts from rank 0's state: parameters, BN buffers,
+    # momentum, accumulation and EMA
+    parallel.broadcast_([*state.model.state_dict().values(),
+                         *state.momentum.values(),
+                         *(state.accum or {}).values(),
+                         *(state.ema or {}).values()])
 
     # --- data ----------------------------------------------------------
     filenames = split_files(args.data_dir, "train2017")
     cache_path = os.path.join(args.data_dir, "train2017.cache.npy")
     dataset = DetectionDataset(filenames, args.input_size, hyp, augment=True,
                                cache_path=cache_path)
-    loader = DataLoader(dataset, batch, shuffle=True,
-                        num_workers=args.workers, drop_last=True)
+    sampler = ShardSampler(len(dataset), world, rank) if world > 1 else None
+    loader = DataLoader(dataset, batch, shuffle=sampler is None,
+                        num_workers=args.workers, drop_last=True, sampler=sampler)
     dev_loader = None
     if getattr(args, "device_augment", False):
         from tpu_yolo_torch.data.device_augment import DeviceAugmentLoader
@@ -194,10 +240,10 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
         dev_loader = DeviceAugmentLoader(
             filenames, args.input_size, hyp, batch, cache_path=cache_path,
             threads=args.workers, seed=getattr(args, "seed", 0),
-            pin_memory=device.type == "cuda")
+            pin_memory=device.type == "cuda", num_shards=world, shard=rank)
         print(f"[train] device augment: stager {dev_loader.stager}", flush=True)
     loader, kind = _native_train_loader(args, hyp, filenames, cache_path, batch,
-                                        dev_loader is not None, loader)
+                                        dev_loader is not None, loader, world, rank)
     print(f"[train] loader: {kind}", flush=True)
     active = loader if dev_loader is None else dev_loader
     fixed_bucket = int(getattr(args, "gt_bucket", 0) or 0)
@@ -206,10 +252,11 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
     # the active loader's length drives the LR schedule and the step count
     num_steps = len(active)
     schedule = optim.linear_lr(args.epochs, num_steps, hyp)
-    try:
-        optim.plot_lr(schedule, os.path.join(args.save_dir, "lr.png"))
-    except ImportError as e:
-        print(f"lr.png not written: {e}")
+    if is_rank0:
+        try:
+            optim.plot_lr(schedule, os.path.join(args.save_dir, "lr.png"))
+        except ImportError as e:
+            print(f"lr.png not written: {e}")
 
     hyp_gains = [hyp["box"], hyp["cls"], hyp["dfl"]]
     remat = getattr(args, "remat", False) and getattr(args, "remat_level",
@@ -222,13 +269,15 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
                           dtype=torch.uint8, pin_memory=True)
               if device.type == "cuda" and dev_loader is None else None)
 
-    log = open(os.path.join(args.save_dir, "step.csv"), "w", newline="")
-    logger = csv.DictWriter(log, fieldnames=[
-        "epoch", "box", "cls", "dfl", "Recall", "Precision", "mAP@50", "mAP"])
-    logger.writeheader()
+    log = logger = None
+    if is_rank0:
+        log = open(os.path.join(args.save_dir, "step.csv"), "w", newline="")
+        logger = csv.DictWriter(log, fieldnames=[
+            "epoch", "box", "cls", "dfl", "Recall", "Precision", "mAP@50", "mAP"])
+        logger.writeheader()
 
     tb = None
-    if getattr(args, "tensorboard", False):
+    if is_rank0 and getattr(args, "tensorboard", False):
         try:
             from torch.utils.tensorboard import SummaryWriter
             tb = SummaryWriter(os.path.join(args.save_dir, "tb"))
@@ -262,12 +311,17 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
                     # the augmented batch stays on the device
                     images_dev, targets = augment_on_device(data, device,
                                                             args.input_size)
-                elif pinned is not None:
-                    images, targets = data
-                    pinned.copy_(torch.from_numpy(images))
-                    images_dev = pinned.to(device, non_blocking=True)
+                    rows = images_dev.shape[0]
                 else:
                     images, targets = data
+                    rows = len(images)
+                if rows != batch:
+                    raise ValueError(f"a batch of {rows} rows on rank {rank}, "
+                                     f"which trains {batch} a step")
+                if dev_loader is None and pinned is not None:
+                    pinned.copy_(torch.from_numpy(images))
+                    images_dev = pinned.to(device, non_blocking=True)
+                elif dev_loader is None:
                     images_dev = torch.from_numpy(images)
                 step = i + num_steps * epoch
                 lr = float(schedule[min(step, len(schedule) - 1)])
@@ -291,6 +345,9 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
                                   f"GT boxes truncated to --gt-bucket="
                                   f"{fixed_bucket}")
                 else:
+                    # per rank: no collective takes the GT's shape here, so
+                    # the ranks need not agree on it (the JAX package
+                    # allgathers the bucket to build one global array)
                     bucket = _gt_bucket(max(max_n, 1))
                 gt = build_padded_targets(
                     targets, batch, bucket,
@@ -306,9 +363,11 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
                     if not np.isfinite(v):
                         # Divergence guard: save the blown state for a
                         # post-mortem and stop with a pointer to the last
-                        # good checkpoint.
+                        # good checkpoint. The losses are the same on
+                        # every rank, so every rank raises; rank 0 writes.
                         crash = os.path.join(args.save_dir, "crash.ckpt")
-                        _save_train_ckpt(crash, state, epoch, best, meta)
+                        if is_rank0:
+                            _save_train_ckpt(crash, state, epoch, best, meta)
                         raise FloatingPointError(
                             f"loss_{k} is {v} at epoch {epoch + 1} step "
                             f"{i} (lr={lr:.2e}); diverged state saved to "
@@ -318,57 +377,73 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda"):
 
             # every step's losses were read, so the device has finished
             seconds = time.perf_counter() - t0
-            print(f"epoch {epoch + 1}/{args.epochs}: "
-                  f"box {meters['box'].avg:.3f} cls {meters['cls'].avg:.3f} "
-                  f"dfl {meters['dfl'].avg:.3f} ({seconds:.1f} s, "
-                  f"{num_steps * batch / seconds:.1f} img/s)", flush=True)
+            if is_rank0:   # the losses are the global batch's on every rank
+                print(f"epoch {epoch + 1}/{args.epochs}: "
+                      f"box {meters['box'].avg:.3f} cls {meters['cls'].avg:.3f} "
+                      f"dfl {meters['dfl'].avg:.3f} ({seconds:.1f} s, "
+                      f"{num_steps * batch * world / seconds:.1f} img/s)", flush=True)
             if epoch_gt_truncated:
                 print(f"[train] epoch {epoch + 1}: {epoch_gt_truncated} "
                       f"GT boxes truncated by --gt-bucket={fixed_bucket} "
                       f"(raise the bucket if persistent)")
 
-            # --- per-epoch eval + checkpoint ---------------------------
-            m_ap, m_ap50, recall, precision = _run_eval(
-                args, hyp, cfg, state, device)
-            logger.writerow({
-                "epoch": str(epoch + 1).zfill(3),
-                "box": f"{meters['box'].avg:.3f}",
-                "cls": f"{meters['cls'].avg:.3f}",
-                "dfl": f"{meters['dfl'].avg:.3f}",
-                "mAP": f"{m_ap:.3f}", "mAP@50": f"{m_ap50:.3f}",
-                "Recall": f"{recall:.3f}", "Precision": f"{precision:.3f}"})
-            log.flush()
-
-            if tb is not None:
-                for k, v in (("loss/box", meters["box"].avg),
-                             ("loss/cls", meters["cls"].avg),
-                             ("loss/dfl", meters["dfl"].avg),
-                             ("val/mAP", m_ap), ("val/mAP50", m_ap50),
-                             ("val/recall", recall),
-                             ("val/precision", precision)):
-                    tb.add_scalar(k, v, epoch + 1)
-                tb.flush()
-
-            best = max(best, m_ap)
-            _save_train_ckpt(os.path.join(args.save_dir, "last.ckpt"),
-                             state, epoch, best, meta)
-            if best == m_ap:
-                _save_train_ckpt(os.path.join(args.save_dir, "best.ckpt"),
-                                 state, epoch, best, meta)
+            # --- per-epoch eval + checkpoint (rank 0) -------------------
+            if is_rank0:
+                best = _end_epoch(args, hyp, cfg, state, device, epoch, best,
+                                  meters, logger, log, tb, meta)
+            parallel.barrier()
     finally:
-        log.close()
+        if log is not None:
+            log.close()
         if tb is not None:
             tb.close()
 
-    for name in ("best.ckpt", "last.ckpt"):
-        p = os.path.join(args.save_dir, name)
-        if os.path.exists(p):
-            ckpt_io.strip_checkpoint(p)
+    if is_rank0:
+        for name in ("best.ckpt", "last.ckpt"):
+            p = os.path.join(args.save_dir, name)
+            if os.path.exists(p):
+                ckpt_io.strip_checkpoint(p)
+    parallel.barrier()
     return state
 
 
+def _end_epoch(args, hyp, cfg, state, device, epoch, best, meters, logger,
+               log, tb, meta) -> float:
+    """Rank 0's end of an epoch: the eval, the step.csv row, tensorboard,
+    last.ckpt and, when the mAP is the best so far, best.ckpt. Returns the
+    best mAP."""
+    m_ap, m_ap50, recall, precision = _run_eval(args, hyp, cfg, state, device)
+    logger.writerow({
+        "epoch": str(epoch + 1).zfill(3),
+        "box": f"{meters['box'].avg:.3f}",
+        "cls": f"{meters['cls'].avg:.3f}",
+        "dfl": f"{meters['dfl'].avg:.3f}",
+        "mAP": f"{m_ap:.3f}", "mAP@50": f"{m_ap50:.3f}",
+        "Recall": f"{recall:.3f}", "Precision": f"{precision:.3f}"})
+    log.flush()
+
+    if tb is not None:
+        for k, v in (("loss/box", meters["box"].avg),
+                     ("loss/cls", meters["cls"].avg),
+                     ("loss/dfl", meters["dfl"].avg),
+                     ("val/mAP", m_ap), ("val/mAP50", m_ap50),
+                     ("val/recall", recall),
+                     ("val/precision", precision)):
+            tb.add_scalar(k, v, epoch + 1)
+        tb.flush()
+
+    best = max(best, m_ap)
+    _save_train_ckpt(os.path.join(args.save_dir, "last.ckpt"),
+                     state, epoch, best, meta)
+    if best == m_ap:
+        _save_train_ckpt(os.path.join(args.save_dir, "best.ckpt"),
+                         state, epoch, best, meta)
+    return best
+
+
 def _native_train_loader(args, hyp, filenames, cache_path, batch,
-                         device_augment: bool, host_loader):
+                         device_augment: bool, host_loader, world: int = 1,
+                         rank: int = 0):
     """(loader, what the `[train] loader:` line says) for --native-train
     auto|on|off: the native loader (data/native_train.py) where it is
     asked for and the library loads; for auto without it the host loader
@@ -397,7 +472,8 @@ def _native_train_loader(args, hyp, filenames, cache_path, batch,
 
     return NativeTrainLoader(filenames, args.input_size, hyp, batch,
                              cache_path=cache_path, threads=args.workers,
-                             seed=getattr(args, "seed", 0)), "native"
+                             seed=getattr(args, "seed", 0), num_shards=world,
+                             shard=rank), "native"
 
 
 def _run_eval(args, hyp, cfg, state, device):
