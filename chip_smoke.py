@@ -41,7 +41,11 @@ both` through the CLI; and the trainer with `--native-train auto` and
 `--tensorboard` on phase n's mini-COCO (phase s): the loader it took
 and why, the top-k kernel counted, the event file's scalars or the
 message that disabled it, `--native-train on` refused without the
-native library. The kernels are custom ops
+native library. Then tensor and spatial parallelism (phase u): two gloo
+ranks sharing the card train v11-n with its wide convs split over a
+model axis, then run the forward of 1280 px images split by height,
+each held against one process with no group and against witnesses that
+repeat the ranks' split arithmetic in one process. The kernels are custom ops
 (`torch.ops.tpu_yolo_torch.*`), so every launch goes through the
 dispatcher. Each phase prints one JSON line; the line before the last
 lists the kernels
@@ -146,6 +150,29 @@ DP_LOSS_TOL = 2e-4
 DP_LATE_RTOL = 1e-2
 DP_BOX_TOL = dict(rtol=1e-5, atol=1e-4)
 DP_TIMEOUT_S = 300
+# phase u: two gloo ranks sharing the card on a (data 1, model 2) mesh,
+# then a (data 1, spatial 2) one, beside one process with no group. u1
+# gates the first step's losses at JAX's tolerance between topologies
+# (later steps amplify f32 rounding: phase t2) and the state after it
+# at TP_STATE_TOL; u2 the f32 class scores at SP_F32_TOL and the bf16
+# detections by _agreement, as phase (f) does. The split convs' input
+# gradients are summed in two halves, and cuDNN picks other algorithms
+# for half-width and half-height convs: a tensor of the state off the
+# oracle by more than TP_STATE_TOL (at --min-channels 64, the early
+# layers' momentum) is held at TP_STATE_TOL to a witness that splits the
+# same convs in halves of channels in one process, without gloo; u2's f32
+# boxes (DFL expectations times the stride), where off by more than
+# SP_F32_TOL, are held there to a witness that runs each conv in two
+# halves of rows (phase t2's way: a witness that reproduces the gap in
+# one process). PERF.md §5
+TP_GLOBAL_BATCH = 8
+TP_STEPS = 2
+TP_LOSS_RTOL = 2e-4
+TP_STATE_TOL = dict(rtol=1e-4, atol=1e-4)
+SP_SIZE = 1280
+SP_F32_TOL = dict(rtol=1e-5, atol=1e-4)
+SP_BF16_MATCH = 0.98
+U_TIMEOUT_S = 600
 # t2's witnesses: the one-process oracle under cudnn.benchmark, and the
 # oracle with ConvBN._train_norm taking its moments over each half of the
 # batch and summing them weighted by 1/2, in the order in which two ranks'
@@ -580,6 +607,11 @@ def main() -> int:
     # --distributed, two gloo ranks sharing the card, Detector(dp=...),
     # the preflight
     _data_parallel_phase(cfg, smi, state, imgs, launches, native_epoch, val_split)
+
+    # (u) tensor and spatial parallelism: two gloo ranks sharing the card
+    # on a (data 1, model 2) mesh, then a (data 1, spatial 2) one, beside
+    # one process with no group
+    _tensor_spatial_phase(cfg, smi, captured, launches)
 
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
@@ -2230,10 +2262,10 @@ events, steps = [], []
 reduce_fn, step_fn, test_fn = mesh._all_reduce, trainer.train_step, cli.run_test
 
 
-def timed_reduce(t):   # every all-reduce of the package, timed on the stream
+def timed_reduce(t, *group):   # every all-reduce of the package, timed on the stream
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    r = reduce_fn(t)
+    r = reduce_fn(t, *group)
     end.record()
     events.append((start, end, t.numel() * t.element_size()))
     return r
@@ -2564,6 +2596,398 @@ def _data_parallel_phase(cfg, smi, state, imgs, launches, native_epoch, val_spli
          **out)
 
 
+_PARALLEL_CHILD = r"""
+import contextlib, io, json, sys, time, types
+
+import torch
+
+from tpu_yolo_torch import rehearsal
+from tpu_yolo_torch.ops import attention_cuda, blocks, nms_cuda, nn, topk_cuda
+from tpu_yolo_torch.parallel import mesh, spatial
+from tpu_yolo_torch.train import loss, step
+
+config = json.loads(sys.argv[1])
+events, steps, tag = [], [], ["setup"]
+plain_forward, plain_partition = nn.ConvBN.forward, spatial.partition_spatial
+
+
+# ConvBN.forward with each conv that --min-channels splits over two ranks
+# computed as its two halves of output channels side by side, in one
+# process: the ranks' arithmetic (a depthwise half reads its input
+# channels; autograd sums the two halves' input gradients, as
+# copy_model's all-reduce does) without the process group
+def split_forward(min_channels):
+    def forward(self, x):
+        o = self.w.shape[0]
+        if o < min_channels or o % 2:
+            return plain_forward(self, x)
+        outs = []
+        for keep in (slice(0, o // 2), slice(o // 2, o)):
+            half = types.SimpleNamespace(
+                w=self.w[keep], stride=self.stride, padding=self.padding, act=self.act,
+                groups=self.groups // 2 if self.groups > 1 else 1, training=self.training,
+                quantized=False, spatial=None, folded=self.folded)
+            for leaf in ("b",) if self.folded else ("gamma", "beta", "mean", "var"):
+                setattr(half, leaf, getattr(self, leaf)[keep])
+            half._conv = types.MethodType(nn.ConvBN._conv, half)
+            half._train_norm = types.MethodType(nn.ConvBN._train_norm, half)
+            outs.append(nn.ConvBN._forward(half, x[:, keep] if self.groups > 1 else x))
+        return torch.cat(outs, 1)
+    return forward
+
+
+# The spatial ranks' arithmetic in one process: each conv outside the PSA
+# block run as two halves of its input's rows, each with the rows its
+# window reads beyond them (zeros past the map's edges), side by side
+def rows_forward(self, x):
+    if not getattr(self, "in_halves", False):
+        return plain_forward(self, x)
+    k, s, p = self.w.shape[2], self.stride, self.padding
+    top, bottom, half = p, max(k - p - s, 0), x.shape[2] // 2
+    padded = torch.nn.functional.pad(x, (0, 0, top, bottom))
+    view = types.SimpleNamespace(
+        w=self.w, stride=s, padding=(0, p), act=self.act, groups=self.groups,
+        training=self.training, quantized=False, spatial=None, folded=True, b=self.b)
+    view._conv = types.MethodType(nn.ConvBN._conv, view)
+    return torch.cat([nn.ConvBN._forward(view, padded[:, :, r * half:(r + 1) * half
+                                                     + top + bottom].contiguous(
+        memory_format=torch.channels_last)) for r in range(2)], 2)
+
+
+def mark_halves(model, mesh):   # in partition_spatial's place, on one rank
+    def mark(m):
+        if isinstance(m, nn.ConvBN):
+            m.in_halves = True
+        if not isinstance(m, blocks.PSA):
+            for child in m.children():
+                mark(child)
+    mark(model)
+    return model
+captured = {"attention": {}, "topk": []}
+collectives = mesh._all_reduce, mesh._all_gather, mesh._broadcast
+step_fn, attn_fn, topk_fn = step.train_step, blocks.fused_attention, loss.topk_mask
+
+
+def timed(fn, at, group_at):   # every collective of the package, timed on the stream
+    def call(*a):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        r = fn(*a)
+        end.record()
+        t, group = a[at], a[group_at] if len(a) > group_at else None
+        events.append((tag[0], mesh.axis_name(group), t.numel() * t.element_size(),
+                       start, end))
+        return r
+    return call
+
+
+def step_tap(*a, **kw):   # the rehearsal reads the losses next: the sync moves no work
+    tag[0] = f"step{len(steps) + 1}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step_fn(*a, **kw)
+    torch.cuda.synchronize()
+    steps.append((time.perf_counter() - t0) * 1e3)
+    tag[0] = "other"
+    return losses
+
+
+def attn_tap(q, k, v, scale):
+    if q.shape[1] == 1600:
+        captured["attention"].setdefault(str(q.dtype).split(".")[1], (q, k, v, scale))
+    return attn_fn(q, k, v, scale)
+
+
+def topk_tap(x, k):
+    captured["topk"].append(x)
+    return topk_fn(x, k)
+
+
+mesh._all_reduce, mesh._all_gather, mesh._broadcast = (
+    timed(fn, at, group_at) for fn, (at, group_at) in zip(collectives, ((0, 1), (1, 2), (0, 2))))
+step.train_step, blocks.fused_attention, loss.topk_mask = step_tap, attn_tap, topk_tap
+out = {"runs": {}}
+for name, argv in config["runs"].items():
+    for fn in (topk_cuda.topk_mask, attention_cuda.fused_attention, nms_cuda.greedy_keep):
+        fn.launches = 0
+    events.clear()
+    steps.clear()
+    tag[0] = "setup"
+    t0 = time.perf_counter()
+    text = io.StringIO()
+    # the witnesses (*_split): the ranks' arithmetic in one process
+    if name == "sp_split":
+        nn.ConvBN.forward, spatial.partition_spatial = rows_forward, mark_halves
+    elif name.endswith("_split"):
+        nn.ConvBN.forward = split_forward(int(argv[argv.index("--min-channels") + 1]))
+    with contextlib.redirect_stdout(text):
+        rehearsal.main(argv)
+    torch.cuda.synchronize()
+    nn.ConvBN.forward, spatial.partition_spatial = plain_forward, plain_partition
+    line = json.loads(text.getvalue().strip().splitlines()[-1])
+    timed_by = {}
+    for tg, axis, nbytes, start, end in events:
+        d = timed_by.setdefault(tg, {}).setdefault(axis, {"calls": 0, "mb": 0.0, "ms": 0.0})
+        d["calls"] += 1
+        d["mb"] += nbytes / 1e6
+        d["ms"] += start.elapsed_time(end)
+    line.update(seconds=time.perf_counter() - t0, step_ms=list(steps),
+                collectives_timed=timed_by)
+    out["runs"][name] = line
+# the kernels against their plain versions at the inputs the runs gave them
+# (after the counts were read)
+out["topk_bit_equal"] = [bool(torch.equal(topk_cuda.topk_mask(x, 10),
+                                          topk_cuda.topk_mask_plain(x, 10)))
+                         for x in captured["topk"]]
+out["attention"] = {}
+for dtype, (q, k, v, scale) in captured["attention"].items():
+    got, want = (f(q, k, v, scale).float() for f in (attention_cuda.fused_attention,
+                                                     attention_cuda.attention_plain))
+    tol, err = config["attn_tol"][dtype], (got - want).abs()
+    out["attention"][dtype] = dict(shape=[list(q.shape), list(v.shape)],
+                                   max_abs_err=float(err.max()),
+                                   ok=bool((err <= tol + tol * want.abs()).all()))
+    if dtype == "float32":   # each one's distance from the exact (f64) result
+        exact = torch.softmax(q.double() @ k.double().transpose(-1, -2) * scale, -1) @ v.double()
+        out["attention"][dtype].update(
+            kernel_to_exact=float((got.double() - exact).abs().max()),
+            plain_to_exact=float((want.double() - exact).abs().max()))
+if config["save"] and "bfloat16" in captured["attention"]:
+    q, k, v, scale = captured["attention"]["bfloat16"]
+    torch.save({"q": q.cpu(), "k": k.cpu(), "v": v.cpu(), "scale": scale}, config["save"])
+out["jax_imported"] = "jax" in sys.modules
+print("PARALLEL_RESULT " + json.dumps(out), flush=True)
+"""
+
+
+def _tensor_spatial_phase(cfg, smi, captured, launches):
+    """Phase (u): tensor and spatial parallelism on the one card.
+
+    One process with no group (the oracle), then two gloo ranks sharing
+    the card (`_PARALLEL_CHILD` around `python -m tpu_yolo_torch.rehearsal`
+    runs; f32 without TF32). u1: v11-n at 640 px on the rehearsal's
+    seeded global batch of TP_GLOBAL_BATCH at lr 1e-3, on a (data 1,
+    model 2) mesh at --min-channels 256 for TP_STEPS steps (writing a
+    .ckpt), then one step at 64 with accumulate 2 (the JAX dryrun's form):
+    the ranks' losses and states bit-equal, the first step's losses
+    within TP_LOSS_RTOL of the oracle's and the state after it within
+    TP_STATE_TOL of the oracle's or, tensor by tensor, of the witness
+    that splits the same convs in one process, the .ckpt read back into
+    a plain YOLO holding the ranks' state bit for bit, top-k launched once per
+    micro-step in each rank and bit-equal to its plain version on the
+    inputs it had. u2: v11-n's seeded serving weights, folded, on
+    TP_GLOBAL_BATCH seeded SP_SIZE px images on a (data 1, spatial 2)
+    mesh: the f32 class scores within SP_F32_TOL of the unsharded
+    forward's, and the whole output within it of the oracle's or of the
+    witness that runs each conv in two halves of rows, the bf16
+    detections after the port's NMS matched both ways at SP_BF16_MATCH,
+    the attention kernel launched in each rank at the gathered p5 map's
+    (16, 1600) and held against its plain version. Prints the
+    collectives by axis and step (calls, MB, ms by CUDA events) and the
+    step and forward times, ranks against the oracle; the times are of
+    two processes sharing the card against one alone."""
+    import torch
+
+    from tpu_yolo_torch.io.checkpoint import load_checkpoint
+    from tpu_yolo_torch.io.weights import from_jax_params, train_state_from_jax
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops.nms import batched_nms
+    from tpu_yolo_torch.rehearsal import state_digest
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env32 = dict(os.environ, PYTHONPATH=root, NVIDIA_TF32_OVERRIDE="0")
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        child = os.path.join(tmp, "parallel_child.py")
+        with open(child, "w") as f:
+            f.write(_PARALLEL_CHILD)
+        common = ["--device", "cuda", "--model", "n", "--size", str(SIZE),
+                  "--global-batch", str(TP_GLOBAL_BATCH), "--lr", "1e-3"]
+        ckpt = os.path.join(tmp, "tp.ckpt")
+
+        def runs(who, group):
+            """The rehearsal's argv of each run; `group` gives a rank's
+            process-group arguments for a run, None for the oracle."""
+            tp = ["--n-model", "2"] if group else []
+            group = group or (lambda run: [])
+            argvs = {
+                "tp256": [*common, *group("tp256"), "--steps", str(TP_STEPS), *tp,
+                          "--min-channels", "256", *(["--ckpt", ckpt] if tp else [])],
+                "tp64": [*common, *group("tp64"), "--steps", "1", "--accumulate", "2", *tp,
+                         "--min-channels", "64"],
+                "sp": [*common, *group("sp"), "--steps", "0",
+                       "--n-spatial", "2" if tp else "1", "--spatial-size", str(SP_SIZE),
+                       "--spatial-dtype", "float32", "--spatial-dtype", "bfloat16"]}
+            if not tp:   # the oracle's witnesses
+                argvs.update({f"{run}_split": argv for run, argv in argvs.items()})
+            return {run: [*argv, "--dump", os.path.join(tmp, who, run)]
+                    for run, argv in argvs.items()}
+
+        def command(who, group):
+            config = {"runs": runs(who, group), "attn_tol": ATTN_TOL,
+                      "save": os.path.join(tmp, f"attn_{who}.pt")}
+            return [sys.executable, child, json.dumps(config)]
+
+        def result(rc, stdout, err, what):
+            check(rc == 0, f"u {what}: rc {rc}: {err[-3000:]}")
+            res = [json.loads(ln[len("PARALLEL_RESULT "):]) for ln in stdout.splitlines()
+                   if ln.startswith("PARALLEL_RESULT ")]
+            check(len(res) == 1 and not res[0]["jax_imported"], f"u {what}: {stdout[-2000:]}")
+            return res[0]
+
+        def group_of(rank):
+            return lambda run: ["--num-processes", "2", "--process-id", str(rank),
+                                "--init-method", f"file://{tmp}/init_{run}",
+                                "--backend", "gloo"]
+
+        # the oracle alone, then the two ranks together
+        t0 = time.perf_counter()
+        oracle = result(*_run_group(command("oracle", None), env32, U_TIMEOUT_S), "oracle")
+        oracle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            ranks = list(pool.map(lambda r: _run_group(
+                command(f"rank{r}", group_of(r)), env32, U_TIMEOUT_S), range(2)))
+        ranks = [result(*r, f"rank {i}") for i, r in enumerate(ranks)]
+        ranks_s = time.perf_counter() - t0
+
+        # -- u1: tensor parallel -------------------------------------------
+        u1 = {}
+        for run, steps in (("tp256", TP_STEPS), ("tp64", 1)):
+            mine = [r["runs"][run] for r in ranks]
+            one = oracle["runs"][run]
+            rel = (np.abs(np.asarray(mine[0]["losses"]) - np.asarray(one["losses"]))
+                   / np.abs(np.asarray(one["losses"]))).max(1).tolist()
+            got = np.load(os.path.join(tmp, "rank0", run, "rank0.npz"))
+            want = np.load(os.path.join(tmp, "oracle", run, "rank0.npz"))
+            split = np.load(os.path.join(tmp, "oracle", f"{run}_split", "rank0.npz"))
+            worst, off = {}, []
+            for key in want.files:
+                kind = key.split("/")[0]
+                if kind in ("param", "momentum", "ema", "grad"):
+                    ratios = [float((np.abs(got[key] - ref[key])
+                                     / (TP_STATE_TOL["atol"] + TP_STATE_TOL["rtol"]
+                                        * np.abs(ref[key]))).max()) for ref in (want, split)]
+                    if ratios[0] > worst.get(kind, (0.0,))[0]:
+                        worst[kind] = (ratios[0], key, float(np.abs(got[key] - want[key]).max()),
+                                       ratios[1], float(np.abs(split[key] - want[key]).max()))
+                    if kind != "grad" and min(ratios) > 1.0:
+                        off.append(key)
+            convs = sorted({n.rsplit(".", 1)[0] for n in mine[0]["sharded"]})
+            u1[run] = dict(
+                coords=[m["coords"] for m in mine], split_convs=len(convs),
+                split_params=sum(int(np.prod(got[f"param/{n}"].shape))
+                                 for n in mine[0]["sharded"] if f"param/{n}" in got.files),
+                losses_ranks=mine[0]["losses"], losses_oracle=one["losses"],
+                losses_rel_err_per_step=rel, gated_steps=1,
+                state_worst_over_tol={k: dict(ratio=v[0], key=v[1], max_abs=v[2],
+                                              ratio_to_split_witness=v[3],
+                                              split_witness_max_abs=v[4])
+                                      for k, v in worst.items()},
+                state_off_both=off,
+                topk_launches=[m["launches"]["topk_mask"] for m in mine],
+                step_ms_ranks=[m["step_ms"] for m in mine], step_ms_oracle=one["step_ms"],
+                collectives_by_step=mine[0]["collectives_timed"],
+                rank_seconds=[m["seconds"] for m in mine], oracle_seconds=one["seconds"])
+            check(mine[0]["losses"] == mine[1]["losses"]
+                  and mine[0]["state_sha256"] == mine[1]["state_sha256"],
+                  f"u1 {run}: the ranks differ: {u1[run]}")
+            check(rel[0] <= TP_LOSS_RTOL, f"u1 {run}: step-1 losses: {u1[run]}")
+            check(not off, f"u1 {run}: the state after step 1: {u1[run]}")
+            check(u1[run]["topk_launches"] == [steps, steps],
+                  f"u1 {run}: top-k launches per micro-step: {u1[run]}")
+        check(u1["tp256"]["split_convs"] == 11 and u1["tp64"]["split_convs"] == 70,
+              f"u1 split convs at 256 and 64: {u1}")
+        check(all(all(r["topk_bit_equal"]) and len(r["topk_bit_equal"]) == TP_STEPS + 1
+                  for r in ranks), f"u1 top-k vs plain: {[r['topk_bit_equal'] for r in ranks]}")
+        payload = load_checkpoint(ckpt)
+        plain = YOLO.from_state_dict(cfg, from_jax_params(payload["params"], cfg))
+        restored = train_state_from_jax(payload, cfg, "cuda")
+        u1["ckpt"] = dict(step=int(payload["step"]), params=sum(
+            p.numel() for p in plain.parameters()),
+            digest_equal=state_digest(restored) == ranks[0]["runs"]["tp256"]["state_sha256"])
+        check(u1["ckpt"]["step"] == TP_STEPS and u1["ckpt"]["digest_equal"],
+              f"u1 .ckpt: {u1['ckpt']}")
+
+        # -- u2: spatial ---------------------------------------------------
+        mine = [r["runs"]["sp"] for r in ranks]
+        one = oracle["runs"]["sp"]
+        got = np.load(os.path.join(tmp, "rank0", "sp", "rank0.npz"))
+        want = np.load(os.path.join(tmp, "oracle", "sp", "rank0.npz"))
+        split = np.load(os.path.join(tmp, "oracle", "sp_split", "rank0.npz"))
+        f32, f32_split = want["spatial/float32"], split["spatial/float32"]
+        f32_gap = np.abs(got["spatial/float32"] - f32)
+        split_gap = np.abs(got["spatial/float32"] - f32_split)
+        over = f32_gap > SP_F32_TOL["atol"] + SP_F32_TOL["rtol"] * np.abs(f32)
+        f32_ok = (not over[..., 4:].any()
+                  and bool(np.allclose(got["spatial/float32"], f32_split, **SP_F32_TOL)))
+        with torch.inference_mode():
+            dets = [batched_nms(torch.from_numpy(d["spatial/bfloat16"]).cuda())
+                    for d in (got, want)]
+        agree = [_agreement(_row(dets[0], i), _row(dets[1], i))
+                 for i in range(TP_GLOBAL_BATCH)]
+        fwd = lambda line, dt: line["spatial"]["forwards"][dt]
+        u2 = dict(
+            coords=[m["spatial"]["coords"] for m in mine],
+            rows_per_rank=mine[0]["spatial"]["rows"], shape=fwd(one, "float32")["shape"],
+            f32_max_abs_err=dict(boxes=float(f32_gap[..., :4].max()),
+                                 scores=float(f32_gap[..., 4:].max())),
+            f32_values_over_tol=dict(boxes=int(over[..., :4].sum()),
+                                     scores=int(over[..., 4:].sum())),
+            f32_to_split_witness_max_abs_err=dict(
+                boxes=float(split_gap[..., :4].max()), scores=float(split_gap[..., 4:].max())),
+            f32_split_witness_to_oracle_max_abs_err=float(np.abs(f32_split - f32).max()),
+            f32_ok=f32_ok,
+            bf16_agreement=agree,
+            launches=[m["spatial"]["launches"] for m in mine],
+            oracle_launches=one["spatial"]["launches"],
+            attention_vs_plain=[r["attention"] for r in ranks],
+            forward_ms={dt: dict(ranks=[fwd(m, dt)["forward_ms"] for m in mine],
+                                 unsharded=fwd(one, dt)["forward_ms"])
+                        for dt in ("float32", "bfloat16")},
+            halo_and_gather_mb_per_forward={
+                dt: fwd(mine[0], dt)["collectives"]["spatial"]["bytes"] / 1e6
+                for dt in ("float32", "bfloat16")},
+            collective_calls_per_forward={
+                dt: fwd(mine[0], dt)["collectives"]["spatial"]["calls"]
+                for dt in ("float32", "bfloat16")},
+            collectives_timed=mine[0]["collectives_timed"])
+        check(fwd(mine[0], "float32")["shape"] == [TP_GLOBAL_BATCH, 33600, 4 + cfg.num_classes]
+              and f32_ok, f"u2 f32 decoded output: {u2}")
+        check(all(min(a["match"]) >= SP_BF16_MATCH for a in agree)
+              and sum(a["count"][1] for a in agree) > 0, f"u2 bf16 detections: {u2}")
+        check(all(m["spatial"]["launches"]["psa_attention"] > 0 for m in mine)
+              and all(set(r["attention"]) == {"float32", "bfloat16"}
+                      and all(a["ok"] and a["shape"][0] == [16, 1600, 32]
+                              for a in r["attention"].values()) for r in ranks),
+              f"u2 attention kernel in the ranks: {u2}")
+        q = torch.load(os.path.join(tmp, "attn_rank0.pt"))
+        captured["spatial_attention"] = tuple(
+            q[k].cuda() for k in ("q", "k", "v")) + (q["scale"],)
+        launches["tp_ranks_topk"] = {run: u1[run]["topk_launches"] for run in u1
+                                     if run != "ckpt"}
+        launches["sp_ranks"] = u2["launches"]
+        launches["sp_attention_err"] = max(a["max_abs_err"] for r in ranks
+                                           for a in r["attention"].values()
+                                           if a["shape"][0] == [16, 1600, 32])
+    out.update(u1=u1, u2=u2, oracle_seconds=oracle_s, ranks_seconds=ranks_s,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(f"u1 losses, ranks vs oracle (relative, per step): "
+          f"{ {r: u1[r]['losses_rel_err_per_step'] for r in ('tp256', 'tp64')} }; "
+          f"u2 f32 max |err| {u2['f32_max_abs_err']} (to the witness in halves "
+          f"{u2['f32_to_split_witness_max_abs_err']}), forward ms {u2['forward_ms']}",
+          flush=True)
+    emit("tensor_spatial_parallel", nvidia_smi=smi, model="v11-n", size=SIZE,
+         spatial_size=SP_SIZE, global_batch=TP_GLOBAL_BATCH,
+         thresholds=dict(u1_loss_rtol=TP_LOSS_RTOL, u1_state_tol=TP_STATE_TOL,
+                         u2_f32_tol=SP_F32_TOL,
+                         u2_f32_boxes="SP_F32_TOL of the oracle's or, everywhere, of "
+                                      "the witness computing each conv in two halves of rows",
+                         u2_bf16_match=SP_BF16_MATCH),
+         **out)
+
+
 def _kernel_rows(captured, launches):
     import torch
 
@@ -2590,6 +3014,8 @@ def _kernel_rows(captured, launches):
         int8_serving_launches=launches["int8_attention"],
         export_launches=launches["export_attention"],
         onnx_live_forward_launches=launches["onnx_attention"],
+        spatial_parallel_launches=dict(
+            u2_ranks=[r["psa_attention"] for r in launches["sp_ranks"]]),
         **_attention_times(q, k, v, scale))]
 
     # at eval's inputs (val batch 32: K/V streamed), counted in run_test
@@ -2602,7 +3028,15 @@ def _kernel_rows(captured, launches):
                                     max_abs_err=float(err.max()),
                                     **_attention_times(q2, k2, v2, scale2))
 
-    # the same kernel at the 1280 px shape, K/V streamed (not on the main path)
+    # at the spatial forward's inputs (phase u2: the gathered p5 map of 8
+    # images at 1280 px, bf16), captured in rank 0, where it was held
+    # against its plain version
+    kernels[0]["spatial_path_shape"] = dict(
+        launches=[r["psa_attention"] for r in launches["sp_ranks"]],
+        max_abs_err=launches["sp_attention_err"],
+        **_attention_times(*captured["spatial_attention"]))
+
+    # the same kernel at the 1280 px shape, K/V streamed, on random inputs
     gen = torch.Generator(device=q.device).manual_seed(SEED)
     q2, k2 = (torch.randn(16, 1600, 32, device=q.device, generator=gen).to(q.dtype)
               for _ in range(2))
@@ -2619,6 +3053,8 @@ def _kernel_rows(captured, launches):
             t2_ranks=[r["nms_greedy_keep"] for r in launches["dp_rehearsal_ranks"]],
             t3_two_replicas=launches["dp_detector"]["nms_greedy_keep"]),
         int8_serving_launches=launches["int8_nms"],
+        spatial_parallel_launches=dict(
+            u2_ranks=[r["nms_greedy_keep"] for r in launches["sp_ranks"]]),
         **_keep_times(*captured["nms"]),
         eval_shape=dict(launches=launches["eval_nms"],
                         **_keep_times(*captured["eval_nms"]))))
@@ -2645,6 +3081,7 @@ def _kernel_rows(captured, launches):
         data_parallel_launches=dict(
             t1_train_rank=launches["dp_train_rank_topk"],
             t2_ranks=[r["topk_mask"] for r in launches["dp_rehearsal_ranks"]]),
+        tensor_parallel_launches=launches["tp_ranks_topk"],
         max_abs_err=float((got.int() - want.int()).abs().max()),
         ms=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K), graph=True),
         ms_with_launch=cuda_ms(lambda: topk_cuda.topk_mask(x, TOP_K)),

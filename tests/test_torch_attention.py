@@ -87,6 +87,60 @@ def test_kernel_schedule_model_matches_plain_and_pallas(dtype, t):
                                rtol=tol, atol=tol)
 
 
+def _f32_kernel_model(q, k, v, scale):
+    """The f32 CUDA kernel's arithmetic, rounding by rounding: per query
+    row a 32-term FMA chain for each score, then keys in tiles of 64: the
+    tile's exponentials and p·v summed on their own (64-term chains, FMAs
+    emulated in f64 and rounded to f32), folded into the running sums by
+    one FMA with the rescale factor, one division at the end."""
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    bh, t, dk = q.shape
+    s = np.zeros((bh, t, t), f32)
+    for d in range(dk):
+        s = fma(q[:, :, None, d], k[:, None, :, d], s)
+    s = (s * f32(scale)).astype(f32)
+    m = np.full((bh, t), -np.inf, f32)
+    l = np.zeros((bh, t), f32)
+    acc = np.zeros((bh, t, v.shape[-1]), f32)
+    for k0 in range(0, t, 64):
+        tile = s[:, :, k0:k0 + 64]
+        m_new = np.maximum(m, tile.max(-1))
+        corr = np.exp(m - m_new).astype(f32)
+        part_l, part = np.zeros_like(l), np.zeros_like(acc)
+        for j in range(tile.shape[-1]):
+            p = np.exp(tile[:, :, j] - m_new).astype(f32)
+            part_l = (part_l + p).astype(f32)
+            part = fma(p[..., None], v[:, None, k0 + j], part)
+        l, acc, m = fma(l, corr, part_l), fma(acc, corr[..., None], part), m_new
+    return (acc * (f32(1) / l)[..., None]).astype(f32)
+
+
+def test_f32_kernel_arithmetic_at_the_spatial_path_shape():
+    """At T = 1600 (the p5 map of a 1280 px image, phase u of
+    chip_smoke.py), scores spread as the seeded serving weights spread
+    them there (std 1.37) and 8 channels of v offset by 12 (outputs near
+    13, as there), the f32 kernel's rounding stays within 1e-5 abs + rel
+    of the plain version, the tolerance the card holds it to, and no
+    farther from the exact (f64) result than the plain version is. One
+    chain of 1,600 FMAs over the row, as the kernel once summed, fails
+    the second condition here."""
+    rng = np.random.default_rng(1600)
+    q, k, v = (a * np.float32(1.17) for a in _qkv(rng, 2, 1600, 32, 64))
+    v[:, :, :8] += 12
+    scale = 32 ** -0.5
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = attention_plain(tq, tk, tv, scale).numpy()
+    exact = (torch.softmax(tq.double() @ tk.double().transpose(-1, -2) * scale, -1)
+             @ tv.double()).numpy()
+    got = _f32_kernel_model(q, k, v, scale)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.abs(got - exact).max() <= np.abs(want - exact).max()
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     q, k, v = map(torch.from_numpy, _qkv(np.random.default_rng(1), 2, 50, 32, 64))
     assert torch.equal(fused_attention(q, k, v, 0.25),

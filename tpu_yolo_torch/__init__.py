@@ -26,8 +26,10 @@ Package layout:
   utils/   drawing detections, the profiler, the torch.export export
   cli/     `python -m tpu_yolo_torch.cli.main --train | --test | --profile
            | --export`
-  parallel/ data parallelism: the data axis, the process group and its
-           collectives (one process per card)
+  parallel/ the mesh (data, model or spatial axes), the process group and
+           its collectives (one process per card); channel tensor
+           parallelism (tensor.py) and the height-sharded forward
+           (spatial.py)
   quant.py int8 W8A8 calibration and quantization
   serve.py the Detector; detect.py `python -m tpu_yolo_torch.detect`
   rehearsal.py, preflight.py  the multi-process rehearsal worker and the

@@ -315,7 +315,17 @@ def train_state_to_jax(state) -> dict:
     trees: {'params', 'opt': {'momentum'[, 'accum']}, 'step',
     'ema_updates', 'ema_params'}. The JAX package keeps momentum and
     accumulation leaves for the BN running statistics too (never
-    touched): they are written as zeros."""
+    touched): they are written as zeros.
+
+    A state split over the model axis (parallel/tensor.py) is gathered
+    first, so the trees are those one process would write: a collective
+    over the model group, so call it on every rank. (A split model takes
+    a whole state through `DataParallel.shard_model_parallel` after
+    `train_state_from_jax`, or `tensor.shard_state`.)"""
+    from tpu_yolo_torch.parallel import tensor
+
+    if tensor.is_sharded(state.model):
+        state = tensor.gather_state(state)
     sd = state.model.state_dict()
 
     def full(per_param):

@@ -22,6 +22,7 @@ from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.blocks import CSP, PSA, SPPF
 from tpu_yolo_torch.ops.boxes import dfl_decode
 from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, upsample2x
+from tpu_yolo_torch.parallel import spatial
 
 # ---------------------------------------------------------------------------
 # Initialization: a numpy copy of the JAX package's init_params. The same
@@ -247,7 +248,13 @@ class YOLO(nn.Module):
     """YOLOv11 of one size. Built with unfolded BatchNorm; `fold_batchnorm`
     folds it in place. A new model is in eval mode, since serving is the
     common use; in training mode (`model.train()`) BatchNorm uses batch
-    statistics and the attention takes its differentiable form."""
+    statistics and the attention takes its differentiable form.
+
+    After `parallel.spatial.partition_spatial(model, mesh)` (`spatial` set)
+    the forward takes this rank's rows of its images and returns the
+    whole outputs of the unsharded forward."""
+
+    spatial = None
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -345,6 +352,8 @@ class YOLO(nn.Module):
         region around every CSP inner block and PSA block (lowest peak
         memory, interiors recompute twice). The same regions as the JAX
         package's `forward_raw(remat=)`."""
+        if self.spatial is not None:
+            self._check_spatial(x)
         net, fpn = self.net, self.fpn
         stage = bool(remat) and torch.is_grad_enabled()
         inner = stage and remat == "blocks"
@@ -379,10 +388,31 @@ class YOLO(nn.Module):
         p5 = run(s5, p4)
         h3, h4 = run(top_down, p3, p4, p5)
         h4b, h5b = run(bottom_up, h3, h4, p5)
-        return [run(lambda f, b=box, c=cls: level(f, b, c), feat)
-                .permute(0, 2, 3, 1)
+        maps = [run(lambda f, b=box, c=cls: level(f, b, c), feat)
                 for feat, box, cls in zip((h3, h4b, h5b), self.head["box"],
                                           self.head["cls"])]
+        if self.spatial is not None:   # the whole maps, for the global anchors
+            maps = [spatial.gather_rows(m) for m in maps]
+        return [m.permute(0, 2, 3, 1) for m in maps]
+
+    def _check_spatial(self, x):
+        """Refuse what the height-sharded forward cannot take."""
+        n = self.spatial.size
+        if self.training:
+            raise ValueError("the spatial forward is for inference: put the model "
+                             "in eval mode")
+        if self.s2d_stem:
+            raise ValueError("the spatial forward takes the plain stem: the "
+                             "space-to-depth stem's top padding row is not exchanged")
+        if x.shape[1] % 32:
+            raise ValueError(f"a spatial forward over {n} ranks takes an image height "
+                             f"that is a multiple of 32·{n} = {32 * n}: this rank "
+                             f"holds {x.shape[1]} rows (H = {x.shape[1] * n})")
+
+    def _image_hw(self, x) -> tuple[int, int]:
+        """The whole images' (H, W) of this rank's input."""
+        h, w = _input_hw(x, self.cfg)
+        return (h * self.spatial.size if self.spatial is not None else h), w
 
     def decode_predictions(self, raw_maps, input_hw):
         """(B, A, 4+nc): pixel-space xywh boxes + sigmoid class scores."""
@@ -397,16 +427,15 @@ class YOLO(nn.Module):
 
     def forward(self, x):
         """NHWC images -> decoded (B, A, 4+nc)."""
-        return self.decode_predictions(self.forward_raw(x),
-                                       _input_hw(x, self.cfg))
+        return self.decode_predictions(self.forward_raw(x), self._image_hw(x))
 
     def forward_nms(self, x, **nms_kwargs):
         """One-call inference: forward -> fused decode + NMS
         (ops/nms.py::nms_from_raw)."""
         from tpu_yolo_torch.ops.nms import nms_from_raw
 
-        return nms_from_raw(self.forward_raw(x), self.cfg,
-                            _input_hw(x, self.cfg), **nms_kwargs)
+        return nms_from_raw(self.forward_raw(x), self.cfg, self._image_hw(x),
+                            **nms_kwargs)
 
     @torch.no_grad()
     def fold_batchnorm(self) -> "YOLO":

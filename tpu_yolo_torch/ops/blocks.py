@@ -10,6 +10,7 @@ from torch import nn
 
 from tpu_yolo_torch.ops.attention_cuda import fused_attention
 from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, max_pool
+from tpu_yolo_torch.parallel import spatial
 
 
 class Residual(nn.Module):
@@ -69,6 +70,8 @@ class CSP(nn.Module):
 class SPPF(nn.Module):
     """Spatial pyramid pooling - fast."""
 
+    spatial = None   # parallel/spatial.py: the pools' halos over this axis
+
     def __init__(self, in_ch: int, out_ch: int, k: int = 5):
         super().__init__()
         self.k = k
@@ -77,9 +80,9 @@ class SPPF(nn.Module):
 
     def forward(self, x):
         x = self.conv1(x)
-        y1 = max_pool(x, self.k)
-        y2 = max_pool(y1, self.k)
-        y3 = max_pool(y2, self.k)
+        y1 = max_pool(x, self.k, axis=self.spatial)
+        y2 = max_pool(y1, self.k, axis=self.spatial)
+        y3 = max_pool(y2, self.k, axis=self.spatial)
         return self.conv2(torch.cat((x, y1, y2, y3), 1))
 
 
@@ -143,7 +146,11 @@ class PSABlock(nn.Module):
 class PSA(nn.Module):
     """Partial self-attention: split channels, attend on half, concat,
     project. `remat=True` checkpoints each block (the training attention
-    keeps its (B, heads, T, T) scores for the backward pass)."""
+    keeps its (B, heads, T, T) scores for the backward pass). With
+    `spatial` (parallel/spatial.py) x is this rank's rows: the module runs
+    on the whole map, gathered, and returns this rank's rows of it."""
+
+    spatial = None
 
     def __init__(self, ch: int, n: int):
         super().__init__()
@@ -154,6 +161,12 @@ class PSA(nn.Module):
                                 for _ in range(n)])
 
     def forward(self, x, remat: bool = False):
+        if self.spatial is not None:
+            return spatial.own_rows(self._forward(spatial.gather_rows(x), remat),
+                                    self.spatial)
+        return self._forward(x, remat)
+
+    def _forward(self, x, remat):
         a, y = self.conv1(x).chunk(2, 1)
         for block in self.m:
             y = ckpt_region(block, y) if remat else block(y)

@@ -19,6 +19,11 @@ dict key is the JAX tree path joined with dots:
 `w`, `b`, `gamma` and `beta` are parameters; `mean` and `var` are buffers,
 as are the four leaves of the int8 form (all float32 but `w_q`).
 
+Under a mesh with a second axis (tpu_yolo_torch/parallel) a module may
+be split or sharded: `shard` (parallel/tensor.py) when it holds only this
+rank's output channels, and `spatial` (parallel/spatial.py) when its
+input holds only this rank's rows of the map; both are None otherwise.
+
 A module in training mode updates its running statistics in `forward`,
 as torch's BatchNorm does. A checkpointed region (`ckpt_region`) runs its
 forward a second time in the backward pass; that second run leaves the
@@ -36,6 +41,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from tpu_yolo_torch import parallel
+from tpu_yolo_torch.parallel import spatial, tensor
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -145,6 +151,9 @@ def quantize_weight(w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 class ConvBN(nn.Module):
     """One convolution with its BatchNorm and activation."""
 
+    shard = None     # parallel/tensor.py::ConvShard: this rank's output channels
+    spatial = None   # parallel/spatial.py::SpatialAxis: this rank's rows
+
     def __init__(self, in_ch: int, out_ch: int, k: int = 1, stride: int = 1,
                  padding: int = 0, groups: int = 1, act=F.silu,
                  folded: bool = False):
@@ -169,15 +178,34 @@ class ConvBN(nn.Module):
         return hasattr(self, "w_q")
 
     def forward(self, x):
+        if self.shard is None:
+            return self._forward(x)
+        # split over the model axis (parallel/tensor.py): this rank's output
+        # channels from the whole input (a depthwise conv's from its own
+        # input channels), then every rank's side by side
+        x = tensor.copy_model(x, self.shard)
+        if self.groups > 1:
+            x = x[:, self.shard.lo:self.shard.hi]
+        return tensor.gather_model(self._forward(x), self.shard)
+
+    def _conv(self, x, w, b=None):
+        """The convolution; with `spatial`, over this rank's rows and the
+        halo rows the kernel reads from its neighbours."""
+        if self.spatial is None:
+            return F.conv2d(x, w, b, stride=self.stride, padding=self.padding,
+                            groups=self.groups)
+        x = spatial.halo_for(x, self.spatial, w.shape[2], self.stride, self.padding, 0.0)
+        return F.conv2d(x, w, b, stride=self.stride, padding=(0, self.padding),
+                        groups=self.groups)
+
+    def _forward(self, x):
         if self.quantized:
             return self._forward_int8(x)
         w = self.w if self.w.dtype == x.dtype else self.w.to(x.dtype)
         if self.folded:
             b = self.b if self.b.dtype == x.dtype else self.b.to(x.dtype)
-            return self.act(F.conv2d(x, w, b, stride=self.stride,
-                                     padding=self.padding, groups=self.groups))
-        y = F.conv2d(x, w, stride=self.stride, padding=self.padding,
-                     groups=self.groups)
+            return self.act(self._conv(x, w, b))
+        y = self._conv(x, w)
         if self.training:
             return self._train_norm(y).to(x.dtype)
         scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
@@ -199,16 +227,20 @@ class ConvBN(nn.Module):
         without a collective; the weight is exact at world 1, where the
         result equals the no-group one bit for bit. A recomputation under
         remat reduces too: every rank recomputes the same regions in the
-        same order."""
+        same order.
+
+        The ranks are those of the data axis (`parallel.axis_size()`): on
+        a mesh with a model axis each model group holds one copy of the
+        batch, and a split conv's moments are its own channels'."""
         yf = y.float()
         mean = yf.mean((0, 2, 3))
         sq_mean = yf.square().mean((0, 2, 3))
         n = yf.numel() // yf.shape[1]
         if parallel.is_distributed():
-            world = parallel.world_size()
+            n_data = parallel.axis_size()
             mean, sq_mean = parallel.all_reduce_sum(
-                torch.stack([mean, sq_mean]) * (1.0 / world)).unbind(0)
-            n *= world
+                torch.stack([mean, sq_mean]) * (1.0 / n_data)).unbind(0)
+            n *= n_data
         var = (sq_mean - mean.square()).clamp(min=0)
         if not getattr(_state, "recomputing", False):
             with torch.no_grad():
@@ -260,6 +292,9 @@ class ConvBN(nn.Module):
         fill (YOLO.from_state_dict)."""
         if self.quantized:
             raise ValueError("ConvBN.quantize_: already quantized")
+        if self.shard is not None:
+            raise ValueError("ConvBN.quantize_: the conv is split over the model "
+                             "axis; int8 takes a whole model")
         if not self.folded:
             raise ValueError("ConvBN.quantize_: fold BatchNorm first")
         w, b = self.w.detach(), self.b.detach().float()
@@ -276,11 +311,17 @@ class ConvBN(nn.Module):
         return self
 
 
-def max_pool(x, k: int, stride: int = 1, padding: int | None = None):
-    """Max pool with implicit −inf padding (the JAX reduce_window form)."""
+def max_pool(x, k: int, stride: int = 1, padding: int | None = None, axis=None):
+    """Max pool with implicit −inf padding (the JAX reduce_window form).
+    With a spatial `axis` (parallel/spatial.py) x is this rank's rows,
+    and the rows the window reads beyond them come from its neighbours,
+    −inf beyond the map's edges."""
     if padding is None:
         padding = k // 2
-    return F.max_pool2d(x, k, stride=stride, padding=padding)
+    if axis is None:
+        return F.max_pool2d(x, k, stride=stride, padding=padding)
+    x = spatial.halo_for(x, axis, k, stride, padding, float("-inf"))
+    return F.max_pool2d(x, k, stride=stride, padding=(0, padding))
 
 
 def upsample2x(x):

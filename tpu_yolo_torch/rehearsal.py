@@ -1,5 +1,6 @@
-"""Data-parallel rehearsal worker: N coordinated processes of the port
-(counterpart of `tools/multihost_rehearsal.py`).
+"""Parallel rehearsal worker: N coordinated processes of the port
+(counterpart of `tools/multihost_rehearsal.py` and of the dp x tp dryrun
+of `__graft_entry__.py`).
 
 Each process is one rank: it draws the same seeded global batches,
 takes its contiguous rows, and runs `train_step`s from init_params(0) in
@@ -20,10 +21,12 @@ with no process group, the oracle; with --init-method it joins a group of
 one. Rank I runs on card I modulo the card count (NCCL), and raises
 where there is no card; --device cpu runs the ranks on the CPU (gloo),
 and --backend gloo lets several ranks share one card. Prints one JSON
-line: {"process_id", "world", "losses" [[box, cls, dfl] per step],
-"eval_counts", "state_sha256" (the final parameters, buffers, momentum
-and EMA), "launches" (each kernel's counter), and with --eval-ap
-"map"/"map50"}.
+line: {"process_id", "world", "coords" (the rank's index on each mesh
+axis), "losses" [[box, cls, dfl] per step], "eval_counts",
+"state_sha256" (the final parameters, buffers, momentum and EMA, whole),
+"sharded" (the names split over the model axis), "collectives" (calls
+and bytes of the steps' collectives by axis), "launches" (each kernel's
+counter), with --eval-ap "map"/"map50", and with --n-spatial "spatial"}.
 
   --ckpt PATH         after the last step rank 0 writes the training
                       state as the trainer's .ckpt (JAX layout); every
@@ -41,12 +44,32 @@ and EMA), "launches" (each kernel's counter), and with --eval-ap
                       (one process, N = their count) forwards the same
                       per-device batch as each rank, as the JAX
                       rehearsal's oracle runs at the global topology
+  --n-model N         a (data, model) mesh: the wide convs split over N
+                      ranks (parallel/tensor.py) by --min-channels C
+                      (256); the data axis is the world over N
+  --n-spatial N       after the steps, the height-sharded inference
+                      forward (parallel/spatial.py) on a (data, spatial)
+                      mesh of N: the seeded weights --eval-ap uses, folded,
+                      on --global-batch seeded images of --spatial-size
+                      pixels, once per --spatial-dtype (float32, the
+                      default; bfloat16). "spatial" holds each forward's
+                      output digest, NMS counts, time (the second of two
+                      forwards) and collectives by axis, and the kernel
+                      launches. With no process group, --n-spatial 1 is
+                      the unsharded forward, its oracle
+  --dump DIR          each rank writes DIR/rank{R}.npz: the losses, the
+                      whole state after the first step (param/, momentum/,
+                      ema/ + name) and that micro-step's gradients, whole
+                      (grad/ + name), and at spatial index 0 each spatial
+                      forward's output for its data shard (spatial/ + dtype)
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -145,6 +168,13 @@ def eval_weights(cfg, model: str, size: int, device) -> dict:
     return serving_state(cfg, 0, seeded_images(np.random.default_rng(0), 8, size), device)
 
 
+def spatial_images(global_bs: int, size: int) -> np.ndarray:
+    """The seeded (B, S, S, 3) uint8 images of the --n-spatial forward."""
+    from tpu_yolo_torch.seeded import seeded_images
+
+    return seeded_images(np.random.default_rng(3000), global_bs, size)
+
+
 def state_digest(state) -> str:
     """sha256 of the training state's parameters, buffers, momentum and
     EMA, in name order: equal digests are bit-equal states."""
@@ -177,7 +207,16 @@ def main(argv=None):
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--resume-from", default="")
     ap.add_argument("--eval-ap", action="store_true")
+    ap.add_argument("--n-model", type=int, default=1)
+    ap.add_argument("--min-channels", type=int, default=256)
+    ap.add_argument("--n-spatial", type=int, default=0)
+    ap.add_argument("--spatial-size", type=int, default=0)
+    ap.add_argument("--spatial-dtype", action="append",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--dump", default="")
     args = ap.parse_args(argv)
+    if args.eval_ap and args.n_model > 1:
+        raise SystemExit("--eval-ap evaluates over a data-only mesh: drop --n-model")
 
     from tpu_yolo_torch.eval.evaluator import evaluate, predict_step
     from tpu_yolo_torch.io import checkpoint as ckpt_io
@@ -185,6 +224,8 @@ def main(argv=None):
                                            train_state_to_jax)
     from tpu_yolo_torch.models.yolov11 import YOLO, init_params
     from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
+    from tpu_yolo_torch.parallel import tensor
+    from tpu_yolo_torch.train import step as step_mod
     from tpu_yolo_torch.train.loss import build_padded_targets
     from tpu_yolo_torch.train.step import init_train_state, train_step
     from tpu_yolo_torch.train.trainer import _gt_bucket
@@ -201,8 +242,22 @@ def main(argv=None):
             rank=args.process_id, world_size=args.num_processes)
     elif args.num_processes != 1:
         raise SystemExit("--num-processes > 1 needs --init-method")
+    inner_loss_and_grads, first_grads = step_mod.loss_and_grads, {}
+
+    def grads_tap(*a, **kw):   # the first micro-step's gradients, for --dump
+        losses, grads = inner_loss_and_grads(*a, **kw)
+        if not first_grads:
+            first_grads.update({n: g.clone() for n, g in grads.items()})
+        return losses, grads
+
     try:
         cfg = TINY if args.model == "tiny" else get_model_config("n")
+        # the data axis (--local-devices shards a process for the eval;
+        # training takes one device a process), and with --n-model a
+        # model axis
+        mesh = parallel.make_mesh(n_model=args.n_model,
+                                  devices=[device] * args.local_devices)
+        dp = parallel.DataParallel(mesh)
         if args.resume_from:
             state = train_state_from_jax(ckpt_io.load_checkpoint(args.resume_from),
                                          cfg, device, args.accumulate)
@@ -211,16 +266,17 @@ def main(argv=None):
             state = init_train_state(model.to(device=device,
                                               memory_format=torch.channels_last),
                                      ema=True, accumulate=args.accumulate)
+        dp.shard_model_parallel(state, args.min_channels)
         parallel.broadcast_([*state.model.state_dict().values(),
                              *state.momentum.values(), *(state.accum or {}).values(),
                              *(state.ema or {}).values()])
-        # the eval's data axis: --local-devices shards a process (training
-        # takes one device a process)
-        dp = parallel.DataParallel(parallel.make_mesh(devices=[device] * args.local_devices))
         rows = dp.rows(args.global_batch)
         local_bs = rows.stop - rows.start
 
-        losses = []
+        if args.dump:
+            step_mod.loss_and_grads = grads_tap
+        parallel.COLLECTIVES.clear()
+        losses, dump = [], {}
         for step in range(args.start_step, args.start_step + args.steps):
             images_g, targets_g = make_global_batch(step, args.global_batch, args.size,
                                                     cfg.num_classes)
@@ -237,24 +293,34 @@ def main(argv=None):
                 apply_update=step % args.accumulate == 0, compute_dtype=torch.float32,
                 remat=args.remat or False)
             losses.append(out.tolist())
+            if args.dump and not dump:
+                dump = _first_step_dump(state, first_grads)
+        step_mod.loss_and_grads = inner_loss_and_grads
+        collectives = {k: dict(v) for k, v in parallel.COLLECTIVES.items()}
+        if args.dump:
+            dump["losses"] = np.asarray(losses, np.float32)
 
+        # the whole state (gathered over the model axis where it is split)
+        whole = tensor.gather_state(state) if tensor.is_sharded(state.model) else state
         if args.ckpt:
             if parallel.rank() == 0:
                 ckpt_io.save_checkpoint(args.ckpt, {"epoch": 0, "best": 0.0, "meta": {},
-                                                    **train_state_to_jax(state)})
+                                                    **train_state_to_jax(whole)})
             parallel.barrier()
 
         # one sharded forward of the EMA weights: the detections summed
-        # over the ranks
-        ema = YOLO.from_state_dict(cfg, state.ema).fold_batchnorm().to(
+        # over the data axis
+        ema = YOLO.from_state_dict(cfg, whole.ema).fold_batchnorm().to(
             device=device, memory_format=torch.channels_last).eval()
         images_g, _ = make_global_batch(999, args.global_batch, args.size, cfg.num_classes)
         out = predict_step(ema, torch.from_numpy(images_g[rows]).to(device),
                            compute_dtype=torch.float32)
-        eval_counts = sum(parallel.gather_objects(int(out["count"].sum())))
+        eval_counts = sum(parallel.gather_objects(int(out["count"].sum()))[::mesh.n_second])
         result = {"process_id": args.process_id, "world": parallel.world_size(),
-                  "losses": losses, "eval_counts": eval_counts,
-                  "state_sha256": state_digest(state)}
+                  "coords": mesh.coords, "losses": losses, "eval_counts": eval_counts,
+                  "state_sha256": state_digest(whole),
+                  "sharded": sorted(tensor.split_names(state.model)),
+                  "collectives": collectives}
         if args.eval_ap:
             weights = eval_weights(cfg, args.model, args.size, device)
             labeller = YOLO.from_state_dict(cfg, weights).fold_batchnorm().to(
@@ -264,14 +330,84 @@ def main(argv=None):
                                        labeller, dp),
                            args.size, compute_dtype=torch.float32, device=device, dp=dp)
             result["map"], result["map50"] = float(res[0]), float(res[1])
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        result["launches"] = {"topk_mask": topk_cuda.topk_mask.launches,
-                              "psa_attention": attention_cuda.fused_attention.launches,
-                              "nms_greedy_keep": nms_cuda.greedy_keep.launches}
+
+        def launches():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            return {"topk_mask": topk_cuda.topk_mask.launches,
+                    "psa_attention": attention_cuda.fused_attention.launches,
+                    "nms_greedy_keep": nms_cuda.greedy_keep.launches}
+
+        if args.n_spatial:
+            result["spatial"] = _spatial_forward(args, cfg, device, launches, dump)
+        result["launches"] = launches()
+        if args.dump:
+            os.makedirs(args.dump, exist_ok=True)
+            np.savez(os.path.join(args.dump, f"rank{parallel.rank()}.npz"), **dump)
         print(json.dumps(result), flush=True)
     finally:
+        step_mod.loss_and_grads = inner_loss_and_grads
         parallel.close_distributed()
+
+
+def _first_step_dump(state, grads) -> dict:
+    """--dump's arrays of the state after the first step and of that
+    step's gradients, whole (gathered over the model axis, a collective)."""
+    from tpu_yolo_torch.parallel import tensor
+
+    if tensor.is_sharded(state.model):
+        grads = tensor.gather_tensors(state.model, grads)
+        state = tensor.gather_state(state)
+    out = {}
+    for prefix, tree in (("param", state.model.state_dict()), ("grad", grads),
+                         ("momentum", state.momentum), ("ema", state.ema)):
+        out.update({f"{prefix}/{n}": t.detach().float().cpu().numpy().copy()
+                    for n, t in tree.items()})   # a copy: later steps update in place
+    return out
+
+
+def _spatial_forward(args, cfg, device, launches, dump: dict) -> dict:
+    """The --n-spatial forward: this rank's rows of its data shard's
+    images through a spatially partitioned YOLO, once per dtype."""
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops.nms import batched_nms
+    from tpu_yolo_torch.parallel.spatial import partition_spatial
+
+    size = args.spatial_size or args.size
+    smesh = parallel.make_spatial_mesh(n_spatial=args.n_spatial, devices=[device])
+    model = YOLO.from_state_dict(cfg, eval_weights(cfg, args.model, args.size, device))
+    model = partition_spatial(model.fold_batchnorm().to(
+        device=device, memory_format=torch.channels_last).eval(), smesh)
+    local = parallel.spatial_batch_sharding(smesh).local(
+        spatial_images(args.global_batch, size))
+    out = {"coords": smesh.coords, "size": size, "rows": list(local.shape[:2]),
+           "forwards": {}}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    before = launches()
+    for name in args.spatial_dtype or ["float32"]:
+        x = torch.from_numpy(local).to(device).to(getattr(torch, name)) / 255
+        with torch.inference_mode():
+            model(x)   # the first forward pays the process's warm-up
+            sync()
+            parallel.COLLECTIVES.clear()
+            t0 = time.perf_counter()
+            pred = model(x)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = batched_nms(pred)["count"]
+        h = hashlib.sha256(pred.float().contiguous().cpu().numpy().tobytes())
+        out["forwards"][name] = {"shape": list(pred.shape), "sha256": h.hexdigest(),
+                                 "counts": counts.tolist(), "forward_ms": ms,
+                                 "collectives": {k: dict(v) for k, v in
+                                                 parallel.COLLECTIVES.items()}}
+        if dump and smesh.coords["spatial"] == 0:   # the group's ranks hold the same
+            dump[f"spatial/{name}"] = pred.float().cpu().numpy()
+    out["launches"] = {k: v - before[k] for k, v in launches().items()}
+    return out
 
 
 if __name__ == "__main__":

@@ -221,8 +221,8 @@ def detection_loss(raw_maps, gt, hyp: dict, cfg: ModelConfig):
         anchors * stride_t, gt_labels, gt_bboxes, mask_gt, num_classes=nc)
 
     # over the global batch in a process group: the clamp is the global
-    # sum's (parallel/mesh.py); no gradient flows, the assigner's inputs
-    # are detached
+    # sum's, summed over the data axis (parallel/mesh.py); no gradient
+    # flows, the assigner's inputs are detached
     tss = parallel.all_reduce_sum(target_scores.sum()).clamp(min=1.0)
 
     # classification: BCE with logits, sum over everything

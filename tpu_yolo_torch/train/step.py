@@ -22,7 +22,14 @@ of `tpu_yolo/train/step.py`).
     package's SPMD step has XLA's psum. The update, the momentum and the
     EMA then run alike on every rank. The model is not wrapped in
     DistributedDataParallel: its reducer fires from hooks on gradient
-    accumulation into `.grad`, which `torch.autograd.grad` never reaches.
+    accumulation into `.grad`, which `torch.autograd.grad` never reaches;
+  * on a mesh with a model axis (parallel/tensor.py) "the ranks" above
+    are those of the data axis: each model group holds one copy of its
+    rows and computes the whole loss, the split convs' gradients are the
+    rank's slices and the others whole, so the gradients are summed over
+    the data group only; the whole ones (and the losses) are then the
+    model group's first rank's (parallel/tensor.py). The state's split
+    tensors stay split through the update, the momentum and the EMA.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import dataclasses
 import torch
 
 from tpu_yolo_torch import parallel
+from tpu_yolo_torch.parallel import tensor
 from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.train import optim
@@ -74,18 +82,22 @@ def loss_and_grads(model: YOLO, images_u8, gt, hyp_gains, *, cfg: ModelConfig,
     forward does, it updates the model's BN running statistics.
 
     In a process group `images_u8` and `gt` are this rank's equal share of
-    the global batch, and the losses and gradients returned are the
-    global batch's, the same on every rank."""
+    the global batch (the share of its index on the data axis), and the
+    losses and gradients returned are the global batch's, the same on
+    every rank of a data group."""
     x = images_u8.to(compute_dtype) / 255
     raw = model.forward_raw(x, remat=remat)
     hyp = {"box": hyp_gains[0], "cls": hyp_gains[1], "dfl": hyp_gains[2]}
     lb, lc, ld = detection_loss(raw, gt, hyp, cfg)
     params = dict(model.named_parameters())
-    batch = images_u8.shape[0] * parallel.world_size()
+    batch = images_u8.shape[0] * parallel.axis_size()
     grads = torch.autograd.grad((lb + lc + ld) * batch, list(params.values()))
     losses = torch.stack([lb, lc, ld]).detach()
     parallel.all_reduce_flat_([*grads, losses])
-    return tuple(losses.unbind(0)), dict(zip(params, grads))
+    grads = dict(zip(params, grads))
+    if tensor.is_sharded(model):
+        tensor.broadcast_replicated_(model, {**grads, "losses": losses})
+    return tuple(losses.unbind(0)), grads
 
 
 def train_step(state: TrainState, images_u8, gt, lr: float, hyp_gains,

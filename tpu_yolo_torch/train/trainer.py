@@ -33,6 +33,9 @@ Kept from the JAX package, which keeps them from the reference:
     batch. Rank 0's state is broadcast once at the start; rank 0 alone
     writes step.csv, tensorboard, lr.png and the checkpoints and runs the
     per-epoch eval, while the others wait at a barrier after each epoch.
+    The trainer is data-parallel only, as the JAX package's is: a mesh
+    with a model or spatial axis is refused (parallel/tensor.py and
+    parallel/spatial.py serve `tpu_yolo_torch.rehearsal`).
 """
 from __future__ import annotations
 
@@ -178,6 +181,9 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda", dp=None):
                          f"{parallel.world_size()}: pass dp=DataParallel(make_mesh()) "
                          "so that every rank trains its own rows")
     if dp is not None:
+        if dp.mesh.n_second > 1:
+            raise ValueError(f"the trainer is data-parallel only, as tpu_yolo's is: "
+                             f"a mesh of {dp.mesh.shape} has a {dp.mesh.second[0]} axis")
         if len(dp.devices) != 1 or dp.devices[0].type != device.type:
             raise ValueError(f"data-parallel training takes one {device.type} "
                              f"device per process, got {dp.devices}")
