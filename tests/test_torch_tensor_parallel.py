@@ -4,8 +4,10 @@ processes on the CPU, against the JAX package's GSPMD step under
 against the port's single process: `python -m tpu_yolo_torch.rehearsal
 --n-model 2` workers (a tiny model at 64 px, f32), all started at once
 from one fixture, one process group per run rendezvousing on a file in
-tmp_path; the sharded names and the rank layout against JAX's mesh; the
-refusals. The workers import torch and the port only."""
+tmp_path; JAX's int8 weights split the same way (`--split-forward`)
+against JAX's split int8 forward and the port's one-process one; the
+sharded names and the rank layout against JAX's mesh; the refusals. The
+workers import torch and the port only."""
 import json
 import os
 import subprocess
@@ -18,7 +20,9 @@ import torch
 
 import jax
 
+from tpu_yolo.core.config import ModelConfig as JaxConfig
 from tpu_yolo.io import checkpoint as jax_ckpt
+from tpu_yolo.models import yolov11 as jax_yolo
 from tpu_yolo.parallel import DataParallel as JaxDataParallel
 from tpu_yolo.parallel import make_mesh as jax_make_mesh
 from tpu_yolo.parallel import make_spatial_mesh as jax_make_spatial_mesh
@@ -29,7 +33,8 @@ from tpu_yolo_torch.io.weights import from_jax_params, train_state_from_jax
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params
 from tpu_yolo_torch.parallel import tensor
 from tpu_yolo_torch.parallel.mesh import Mesh
-from tpu_yolo_torch.rehearsal import TINY
+from tpu_yolo_torch.rehearsal import TINY, spatial_images
+from test_torch_spatial import INT8_BOX_TOL, INT8_SCORE_TOL, SIZE, _int8_weights
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +42,8 @@ TOL = 2e-4          # tests/test_parallel.py's tolerance between topologies
 GRAD_TOL = 1e-5     # the replicated stem's gradient against one process
 TIMEOUT = 300
 CPU = torch.device("cpu")
+JTINY = JaxConfig(width=TINY.width, depth=TINY.depth, csp=TINY.csp,
+                  num_classes=TINY.num_classes)
 # the (n_data, accumulate) cases of the dp x tp step, on a model axis of 2
 CASES = [(1, 1), (1, 2), (2, 1), (2, 2)]
 
@@ -127,7 +134,13 @@ def runs(tmp_path_factory):
     that .ckpt."""
     d = tmp_path_factory.mktemp("tensor_parallel")
     ckpt = str(d / "tp.ckpt")
-    specs = {"oracle2": (1, ["--steps", "2"], None), "dp2": (2, [], d / "dp2")}
+    q = _int8_weights()
+    torch.save(from_jax_params(q, TINY), d / "int8.pt")
+    specs = {"oracle2": (1, ["--steps", "2"], None), "dp2": (2, [], d / "dp2"),
+             "int8_split": (2, ["--steps", "0", "--n-model", "2", "--min-channels", "64",
+                                "--split-forward", "--weights", str(d / "int8.pt"),
+                                "--spatial-size", str(SIZE), "--global-batch", "2"],
+                            d / "int8_split")}
     for acc in (1, 2):
         specs[f"oracle_acc{acc}"] = (1, ["--accumulate", str(acc)], None)
         for n_data in (1, 2):
@@ -145,7 +158,17 @@ def runs(tmp_path_factory):
                          if k != "oracle2" else ["--dump", str(dumps[k]), *extra],
                          init and str(init))
                for k, (n, extra, init) in specs.items()}
-    out = {k: _collect(p) for k, p in started.items()}
+    try:   # JAX's int8 forward, its convs split as shard_model_parallel(64) splits them
+        jdp = JaxDataParallel(jax_make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2]))
+        fwd = jax.jit(lambda p, v: jax_yolo.forward(p, v, JTINY, train=False))
+        x = jax.numpy.asarray(spatial_images(2, SIZE).astype(np.float32) / 255)
+        split = jdp.shard_model_parallel(q, min_channels=64)
+        assert split["fpn"]["h6"]["conv1"]["w_q"].sharding.spec[-1:] == ("model",)
+        assert split["fpn"]["h6"]["conv1"]["s_in"].sharding.spec == ()
+        jax_int8 = {"split": np.asarray(fwd(split, x)), "unsharded": np.asarray(fwd(q, x))}
+    finally:
+        out = {k: _collect(p) for k, p in started.items()}
+    out["jax_int8"], out["int8_state"] = jax_int8, torch.load(d / "int8.pt")
     for c, proc in jax_runs.items():
         _, err = proc.communicate(timeout=TIMEOUT)
         assert proc.returncode == 0, err[-4000:]
@@ -276,8 +299,10 @@ def test_rank_layout_equals_jax_device_grid(axis, n_data, n_second):
 
 def test_refusals():
     """(e) A model axis that does not divide the ranks, a mesh asking for
-    more ranks than there are, the trainer given a model axis, int8 in a
-    split model (either order)."""
+    more ranks than there are, the trainer given a model axis, quantizing
+    a split conv (JAX's quantize_params makes whole arrays of split
+    leaves, so its result is no longer split either); an int8 conv is
+    split as JAX splits it."""
     with pytest.raises(ValueError, match="a model axis of 2 does not divide the 1 ranks"):
         parallel.make_mesh(n_model=2)
     with pytest.raises(ValueError, match=r"need 4 devices for a \('data', 'model'\) mesh"):
@@ -297,11 +322,59 @@ def test_refusals():
     tp.shard_model_parallel(folded, 64)
     with pytest.raises(ValueError, match="split over the model axis; int8"):
         folded.fpn["h6"].conv1.quantize_(0.1)
+    # the other order is JAX's: an int8 conv splits w_q, s_w and b, not s_in
     int8 = YOLO.from_state_dict(TINY, from_jax_params(init_params(0, TINY), TINY))
     int8.fold_batchnorm()
     int8.fpn["h6"].conv1.quantize_(0.1)
-    with pytest.raises(ValueError, match="int8 conv cannot be split"):
-        tp.shard_model_parallel(int8, 64)
+    tp.shard_model_parallel(int8, 64)
+    conv = int8.fpn["h6"].conv1
+    assert conv.shard is not None and conv.w_q.shape[0] == conv.s_w.shape[0] == conv.b.shape[0]
+    assert conv.w_q.shape[0] * 2 == conv.shard.full and conv.s_in.dim() == 0
+
+
+def test_int8_split_forward_matches_jax_and_one_process(runs):
+    """JAX's int8 weights split over a model axis of 2 at --min-channels 64
+    (w_q, s_w and b on their output channels, s_in whole) on 2 images at
+    128 px: the ranks hold the same output, within
+    tests/test_torch_quant.py's tolerances of JAX's int8 forward under
+    shard_model_parallel(min_channels=64) and unsplit (boxes 1e-3 px,
+    scores 1e-5), and bit-equal to the port's one-process int8 forward
+    (each rank's half of a conv's output channels sums exact integers)."""
+    ranks = runs["int8_split"]
+    assert [r["coords"] for r in ranks] == [{"data": 0, "model": i} for i in range(2)]
+    key = f"plain/{SIZE}/float32"
+    fwds = [r["split"]["forwards"][key] for r in ranks]
+    assert fwds[0]["sha256"] == fwds[1]["sha256"] and fwds[0]["rows"] == [2, SIZE]
+    assert fwds[0]["collectives"]["model"]["calls"] > 0
+    got = runs["dump"]["int8_split"][f"split/{key}"]
+    for ref in runs["jax_int8"].values():
+        assert np.abs(got[..., :4] - ref[..., :4]).max() <= INT8_BOX_TOL
+        assert np.abs(got[..., 4:] - ref[..., 4:]).max() <= INT8_SCORE_TOL
+    model = YOLO.from_state_dict(TINY, runs["int8_state"])
+    with torch.inference_mode():
+        one = model(torch.from_numpy(spatial_images(2, SIZE)).float() / 255).numpy()
+    np.testing.assert_array_equal(got, one)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_int8_split_names_equal_jax(rank):
+    """An int8 model's split leaves, name for name, are those JAX's
+    model_sharding_spec splits in its int8 tree at min_channels 64 (w_q,
+    s_w and b of each wide conv; no s_in), and shard_state slices a whole
+    int8 state as the split model holds it."""
+    q = _int8_weights()
+    jdp = JaxDataParallel(jax_make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2]))
+    want = {name for name, leaf in _dotted(q).items()
+            if jdp.model_sharding_spec(leaf, 64).spec[-1:] == ("model",)}
+    whole = YOLO.from_state_dict(TINY, from_jax_params(q, TINY))
+    split = YOLO.from_state_dict(TINY, from_jax_params(q, TINY))
+    parallel.DataParallel(Mesh((CPU,), 2, rank, ("model", 2))).shard_model_parallel(split, 64)
+    names = set(tensor.split_names(split))
+    assert names == want and any(n.endswith(".w_q") for n in names)
+    assert not any(n.endswith(".s_in") for n in names)
+    mine = tensor.shard_state(split, whole.state_dict())
+    for name, t in split.state_dict().items():
+        assert torch.equal(mine[name], t), name
 
 
 def test_shard_state_inverts_the_split():

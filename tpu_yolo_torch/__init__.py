@@ -39,6 +39,7 @@ Package layout:
 __version__ = "0.1.0"
 
 from tpu_yolo_torch.core.config import (  # noqa: E402
+    COCO_NAMES,
     MODEL_CONFIGS,
     ModelConfig,
     get_model_config,
@@ -51,9 +52,13 @@ from tpu_yolo_torch.io.checkpoint import (  # noqa: E402
 )
 from tpu_yolo_torch.io.weights import (  # noqa: E402
     convert_state_dict,
+    export_reference_state_dict,
+    export_ultralytics_state_dict,
     from_jax_params,
     load_checkpoint_params,
+    load_partial,
     load_torch_state_dict,
+    save_torch_checkpoint,
     to_jax_params,
 )
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params  # noqa: E402
@@ -62,9 +67,11 @@ from tpu_yolo_torch.parallel import DataParallel, make_mesh  # noqa: E402
 from tpu_yolo_torch.serve import Detector  # noqa: E402
 
 __all__ = [
-    "MODEL_CONFIGS", "ModelConfig", "get_model_config", "load_hyperparams",
+    "COCO_NAMES", "MODEL_CONFIGS", "ModelConfig", "get_model_config", "load_hyperparams",
     "load_checkpoint", "save_checkpoint", "strip_checkpoint",
     "convert_state_dict", "from_jax_params", "to_jax_params",
-    "load_checkpoint_params", "load_torch_state_dict", "YOLO", "init_params",
+    "load_checkpoint_params", "load_torch_state_dict", "load_partial",
+    "export_reference_state_dict", "export_ultralytics_state_dict",
+    "save_torch_checkpoint", "YOLO", "init_params",
     "batched_nms", "nms_from_raw", "Detector", "DataParallel", "make_mesh",
 ]

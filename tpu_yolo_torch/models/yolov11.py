@@ -14,7 +14,6 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from tpu_yolo_torch.core.config import ModelConfig
@@ -334,13 +333,14 @@ class YOLO(nn.Module):
     def _stem_input(self, x):
         """NHWC images -> the stem's NCHW input. With the s2d stem an
         image batch is rearranged on the device (a batch that already has
-        4·C_in channels is taken as it is) and padded top and left by
-        one, the stem's asymmetric padding."""
-        if not self.s2d_stem:
-            return x.permute(0, 3, 1, 2)
-        if x.shape[-1] != 4 * self.cfg.width[0]:
+        4·C_in channels is taken as it is); the stem pads it top and left
+        by one (its padding ((1, 0), (1, 0))). With `spatial` this rank's
+        rows are first moved to the forward's block layout."""
+        if self.spatial is not None:
+            x = spatial.to_blocks(x.permute(0, 3, 1, 2), self.spatial).permute(0, 2, 3, 1)
+        if self.s2d_stem and x.shape[-1] != 4 * self.cfg.width[0]:
             x = _space_to_depth2(x)
-        return F.pad(x.permute(0, 3, 1, 2), (1, 0, 1, 0))
+        return x.permute(0, 3, 1, 2)
 
     def forward_raw(self, x, remat=False):
         """NHWC images -> list of 3 NHWC maps (B, H/s, W/s, 4*reg_max + nc).
@@ -352,8 +352,13 @@ class YOLO(nn.Module):
         region around every CSP inner block and PSA block (lowest peak
         memory, interiors recompute twice). The same regions as the JAX
         package's `forward_raw(remat=)`."""
-        if self.spatial is not None:
-            self._check_spatial(x)
+        if self.spatial is None:
+            return self._forward_raw(x, remat)
+        self._check_spatial(x)
+        with spatial.sharded(spatial.Shards.of(*self._image_hw(x), self.spatial.size)):
+            return self._forward_raw(x, remat)
+
+    def _forward_raw(self, x, remat):
         net, fpn = self.net, self.fpn
         stage = bool(remat) and torch.is_grad_enabled()
         inner = stage and remat == "blocks"
@@ -392,22 +397,19 @@ class YOLO(nn.Module):
                 for feat, box, cls in zip((h3, h4b, h5b), self.head["box"],
                                           self.head["cls"])]
         if self.spatial is not None:   # the whole maps, for the global anchors
-            maps = [spatial.gather_rows(m) for m in maps]
+            maps = [spatial.gather_rows(m, self.spatial) for m in maps]
         return [m.permute(0, 2, 3, 1) for m in maps]
 
     def _check_spatial(self, x):
         """Refuse what the height-sharded forward cannot take."""
-        n = self.spatial.size
         if self.training:
             raise ValueError("the spatial forward is for inference: put the model "
                              "in eval mode")
-        if self.s2d_stem:
-            raise ValueError("the spatial forward takes the plain stem: the "
-                             "space-to-depth stem's top padding row is not exchanged")
-        if x.shape[1] % 32:
-            raise ValueError(f"a spatial forward over {n} ranks takes an image height "
-                             f"that is a multiple of 32·{n} = {32 * n}: this rank "
-                             f"holds {x.shape[1]} rows (H = {x.shape[1] * n})")
+        h, w = self._image_hw(x)
+        if h % 32 or w % 32:
+            raise ValueError(f"a spatial forward takes images whose height and width "
+                             f"are multiples of 32: this rank holds {x.shape[1]} of "
+                             f"H = {h} rows, W = {w}")
 
     def _image_hw(self, x) -> tuple[int, int]:
         """The whole images' (H, W) of this rank's input."""
@@ -459,7 +461,7 @@ class YOLO(nn.Module):
         if not self.s2d_stem:
             stem.w = nn.Parameter(_stem_s2d_weight(stem.w),
                                   requires_grad=stem.w.requires_grad)
-        stem.stride, stem.padding = 1, 0
+        stem.stride, stem.padding = 1, ((1, 0), (1, 0))
         return self
 
     @torch.no_grad()

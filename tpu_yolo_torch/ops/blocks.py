@@ -162,8 +162,8 @@ class PSA(nn.Module):
 
     def forward(self, x, remat: bool = False):
         if self.spatial is not None:
-            return spatial.own_rows(self._forward(spatial.gather_rows(x), remat),
-                                    self.spatial)
+            return spatial.own_rows(self._forward(spatial.gather_rows(x, self.spatial),
+                                                  remat), self.spatial)
         return self._forward(x, remat)
 
     def _forward(self, x, remat):

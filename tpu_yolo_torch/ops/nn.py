@@ -92,9 +92,10 @@ def int8_conv2d(xq, w_q, stride: int = 1, padding=0, groups: int = 1):
 
     A dense conv (groups 1) is one `torch._int_mm` over an NHWC im2col:
     the kh·kw shifted views of the padded input side by side, K = kh·kw·C
-    and N = O padded with zeros to multiples of 8 (the card's rule; zeros
-    leave the sums exact), the weight as a column-major operand, and M
-    padded past 16 rows on the card. An f32 conv would not do: its sums
+    padded with zeros to a multiple of 8 and N = O to a multiple of 16
+    (the card's rules: its int8 GEMM refuses N = 40, half of a split
+    80-channel conv; zeros leave the sums exact), the weight as a
+    column-major operand, and M padded past 16 rows on the card. An f32 conv would not do: its sums
     leave the exact range once C·kh·kw·127² >= 2^24. A depthwise conv
     (groups == C == O) is an f32 conv of the int8 values, exact since
     kh·kw·127² < 2^24, and int8 values are exact in TF32 too. Other
@@ -121,7 +122,7 @@ def int8_conv2d(xq, w_q, stride: int = 1, padding=0, groups: int = 1):
     taps = [x[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
             for i in range(kh) for j in range(kw)]
     k = kh * kw * c
-    k8, o8 = -(-k // 8) * 8, -(-o // 8) * 8
+    k8, o8 = -(-k // 8) * 8, -(-o // 16) * 16
     if k8 > k:
         taps.append(x.new_zeros((b, ho, wo, k8 - k)))
     a = (taps[0] if len(taps) == 1 else torch.cat(taps, -1)).reshape(b * ho * wo, k8)
@@ -188,15 +189,32 @@ class ConvBN(nn.Module):
             x = x[:, self.shard.lo:self.shard.hi]
         return tensor.gather_model(self._forward(x), self.shard)
 
+    def _window(self, x, k: int):
+        """(x, (ph, pw)): the input a k x k window runs over and the
+        symmetric padding the conv then takes. With `spatial`, x takes the
+        halo rows the window reads beyond this rank's rows (its padding
+        along H) from its neighbours; an asymmetric padding (the s2d
+        stem's ((1, 0), (1, 0))) is applied here."""
+        (top, bottom), (left, right) = _pads(self.padding)
+        if self.spatial is not None:
+            x = spatial.halo_for(x, self.spatial, k, self.stride, top, 0.0)
+            top = bottom = 0
+        if (top, left) != (bottom, right):
+            x = F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        return x, (top, left)
+
+    def _run(self, conv, x, k: int):
+        """conv(x) on the window's input; on a spatial rank that holds no
+        row of the map, its empty output (spatial.window)."""
+        return conv(x) if self.spatial is None else spatial.window(conv, x, k)
+
     def _conv(self, x, w, b=None):
         """The convolution; with `spatial`, over this rank's rows and the
         halo rows the kernel reads from its neighbours."""
-        if self.spatial is None:
-            return F.conv2d(x, w, b, stride=self.stride, padding=self.padding,
-                            groups=self.groups)
-        x = spatial.halo_for(x, self.spatial, w.shape[2], self.stride, self.padding, 0.0)
-        return F.conv2d(x, w, b, stride=self.stride, padding=(0, self.padding),
-                        groups=self.groups)
+        x, pad = self._window(x, w.shape[2])
+        return self._run(lambda v: F.conv2d(v, w, b, stride=self.stride, padding=pad,
+                                            groups=self.groups), x, w.shape[2])
 
     def _forward(self, x):
         if self.quantized:
@@ -261,9 +279,11 @@ class ConvBN(nn.Module):
     def _forward_int8(self, x):
         """The JAX package's order: the quantized input, the int32 conv,
         y·(s_in·s_w) + b and the activation in f32, cast back to x's
-        dtype."""
-        y = int8_conv2d(self.quantize_input(x), self.w_q, self.stride, self.padding,
-                        self.groups)
+        dtype. With `spatial` the halo carries the quantized input."""
+        k = self.w_q.shape[2]
+        xq, (ph, pw) = self._window(self.quantize_input(x), k)
+        y = self._run(lambda v: int8_conv2d(v, self.w_q, self.stride, ((ph, ph), (pw, pw)),
+                                            self.groups), xq, k)
         y = (y.float() * (self.s_in * self.s_w).view(1, -1, 1, 1)
              + self.b.view(1, -1, 1, 1))
         return self.act(y).to(x.dtype)
@@ -321,9 +341,14 @@ def max_pool(x, k: int, stride: int = 1, padding: int | None = None, axis=None):
     if axis is None:
         return F.max_pool2d(x, k, stride=stride, padding=padding)
     x = spatial.halo_for(x, axis, k, stride, padding, float("-inf"))
-    return F.max_pool2d(x, k, stride=stride, padding=(0, padding))
+    return spatial.window(lambda v: F.max_pool2d(v, k, stride=stride, padding=(0, padding)),
+                          x, k)
 
 
 def upsample2x(x):
-    """Nearest-neighbour 2x upsample of an NCHW tensor."""
+    """Nearest-neighbour 2x upsample of an NCHW tensor (of no rows on a
+    spatial rank that holds none of the map)."""
+    if not x.shape[2]:
+        b, c, _, w = x.shape
+        return x.new_empty((b, c, 0, 2 * w))
     return F.interpolate(x, scale_factor=2, mode="nearest")

@@ -11,7 +11,8 @@ the Megatron column form, and compute the same thing:
     the JAX layout is at least `min_channels` and divides evenly over the
     model axis is split on it; everything else is replicated. For a
     `ConvBN` that dimension is its output channels, dim 0 of every leaf
-    (w (O, I/g, k, k), gamma, beta, mean, var, b), so a conv is split
+    (w (O, I/g, k, k), gamma, beta, mean, var, b; an int8 conv's w_q,
+    s_w and b, its scalar s_in whole), so a conv is split
     whole or not at all, and its momentum, accumulation and EMA mirrors
     with it;
   * a split conv's forward is y = gather_model(conv(copy_model(x), W_r)):
@@ -121,8 +122,9 @@ def shard_model_parallel(mesh: Mesh, model_or_state, min_channels: int = 256):
     with its momentum, accumulation and EMA mirrors) whose output
     channels `model_sharding_spec` splits: every leaf keeps this rank's
     channels, and the conv gathers its output over the model group in
-    its forward. Nothing changes on a model axis of 1. An int8 model is
-    refused: its W8A8 form takes no split. Returns the argument."""
+    its forward. Nothing changes on a model axis of 1. An int8 conv splits
+    w_q, s_w and b and keeps its scalar s_in whole, as JAX's rule does
+    (a scalar has no last dimension to split). Returns the argument."""
     state = model_or_state if hasattr(model_or_state, "momentum") else None
     model = state.model if state is not None else model_or_state
     n = mesh.shape.get("model", 1)
@@ -132,15 +134,13 @@ def shard_model_parallel(mesh: Mesh, model_or_state, min_channels: int = 256):
                                                      state.ema) if t is not None]
     index = mesh.coords["model"]
     for name, m in _convs(model):
-        if m.quantized:
-            raise ValueError(f"{name}: an int8 conv cannot be split over the model "
-                             "axis (quantize the whole model in one process)")
         if m.shard is not None:
             raise ValueError(f"{name}: already split over the model axis")
-        full = m.w.shape[0]
-        if not model_sharding_spec(mesh, m.w, min_channels).spec:
+        w = m.w_q if m.quantized else m.w
+        full = w.shape[0]
+        if not model_sharding_spec(mesh, w, min_channels).spec:
             continue
-        if m.groups not in (1, full) or (m.groups == full and m.w.shape[1] != 1):
+        if m.groups not in (1, full) or (m.groups == full and w.shape[1] != 1):
             raise ValueError(f"{name}: groups={m.groups} over {full} outputs: dense "
                              "and depthwise convs only")
         shard = ConvShard(mesh.groups[1] if mesh.groups else None, index, n, full)
@@ -149,7 +149,8 @@ def shard_model_parallel(mesh: Mesh, model_or_state, min_channels: int = 256):
             setattr(m, leaf, nn.Parameter(t.detach()[keep].clone(),
                                           requires_grad=t.requires_grad))
         for leaf, t in list(m.named_buffers(recurse=False)):
-            setattr(m, leaf, t[keep].clone())
+            if t.dim():
+                setattr(m, leaf, t[keep].clone())
         for tree in mirrors:
             for key in [k for k in tree if k.rsplit(".", 1)[0] == name]:
                 tree[key] = tree[key][keep].clone()
@@ -160,9 +161,10 @@ def shard_model_parallel(mesh: Mesh, model_or_state, min_channels: int = 256):
 
 
 def split_names(model) -> dict:
-    """{state-dict name: ConvShard} of a model's split leaves."""
+    """{state-dict name: ConvShard} of a model's split leaves (an int8
+    conv's s_in, a scalar, is whole)."""
     return {f"{name}.{leaf}": m.shard for name, m in _convs(model)
-            if m.shard is not None for leaf in m.state_dict()}
+            if m.shard is not None for leaf, t in m.state_dict().items() if t.dim()}
 
 
 def is_sharded(model) -> bool:

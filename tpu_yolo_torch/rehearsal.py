@@ -49,19 +49,33 @@ counter), with --eval-ap "map"/"map50", and with --n-spatial "spatial"}.
                       (256); the data axis is the world over N
   --n-spatial N       after the steps, the height-sharded inference
                       forward (parallel/spatial.py) on a (data, spatial)
-                      mesh of N: the seeded weights --eval-ap uses, folded,
-                      on --global-batch seeded images of --spatial-size
-                      pixels, once per --spatial-dtype (float32, the
-                      default; bfloat16). "spatial" holds each forward's
-                      output digest, NMS counts, time (the second of two
+                      mesh of N: the seeded weights --eval-ap uses (or
+                      --weights), folded, on --global-batch seeded images
+                      of each --spatial-size (repeatable; --size by
+                      default) pixels, with each --spatial-stem
+                      (repeatable: plain, the default; s2d, the stem
+                      folded to space-to-depth; s2d-input, that stem fed
+                      the batch already rearranged on the host and split
+                      along its H / 2 rows), once per --spatial-dtype
+                      (float32, the default; bfloat16). "spatial" holds
+                      under "STEM/SIZE/DTYPE" each forward's rows, output
+                      digest, NMS counts, time (the second of two
                       forwards) and collectives by axis, and the kernel
                       launches. With no process group, --n-spatial 1 is
                       the unsharded forward, its oracle
+  --split-forward     with --n-model, the same forwards (plain stem) with
+                      the wide convs split over the model axis by
+                      --min-channels (parallel/tensor.py), each rank on
+                      its data shard's whole images, reported as "split";
+                      --n-model 1 with no process group is its oracle
+  --weights PATH      the forwards' weights: a state dict saved with
+                      torch.save (BatchNorm folded or not, float or int8)
   --dump DIR          each rank writes DIR/rank{R}.npz: the losses, the
                       whole state after the first step (param/, momentum/,
                       ema/ + name) and that micro-step's gradients, whole
-                      (grad/ + name), and at spatial index 0 each spatial
-                      forward's output for its data shard (spatial/ + dtype)
+                      (grad/ + name), and at index 0 of the spatial (or
+                      model) axis each forward's output for its data shard
+                      (spatial/ or split/ + STEM/SIZE/DTYPE)
 """
 from __future__ import annotations
 
@@ -210,13 +224,19 @@ def main(argv=None):
     ap.add_argument("--n-model", type=int, default=1)
     ap.add_argument("--min-channels", type=int, default=256)
     ap.add_argument("--n-spatial", type=int, default=0)
-    ap.add_argument("--spatial-size", type=int, default=0)
+    ap.add_argument("--spatial-size", type=int, action="append")
+    ap.add_argument("--spatial-stem", action="append",
+                    choices=("plain", "s2d", "s2d-input"))
     ap.add_argument("--spatial-dtype", action="append",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--split-forward", action="store_true")
+    ap.add_argument("--weights", default="")
     ap.add_argument("--dump", default="")
     args = ap.parse_args(argv)
     if args.eval_ap and args.n_model > 1:
         raise SystemExit("--eval-ap evaluates over a data-only mesh: drop --n-model")
+    if args.split_forward and args.n_spatial:
+        raise SystemExit("--split-forward runs on the (data, model) mesh: drop --n-spatial")
 
     from tpu_yolo_torch.eval.evaluator import evaluate, predict_step
     from tpu_yolo_torch.io import checkpoint as ckpt_io
@@ -339,7 +359,9 @@ def main(argv=None):
                     "nms_greedy_keep": nms_cuda.greedy_keep.launches}
 
         if args.n_spatial:
-            result["spatial"] = _spatial_forward(args, cfg, device, launches, dump)
+            result["spatial"] = _sharded_forward(args, cfg, device, launches, dump, "spatial")
+        if args.split_forward:
+            result["split"] = _sharded_forward(args, cfg, device, launches, dump, "model")
         result["launches"] = launches()
         if args.dump:
             os.makedirs(args.dump, exist_ok=True)
@@ -366,46 +388,63 @@ def _first_step_dump(state, grads) -> dict:
     return out
 
 
-def _spatial_forward(args, cfg, device, launches, dump: dict) -> dict:
-    """The --n-spatial forward: this rank's rows of its data shard's
-    images through a spatially partitioned YOLO, once per dtype."""
-    from tpu_yolo_torch.models.yolov11 import YOLO
+def _sharded_forward(args, cfg, device, launches, dump: dict, axis: str) -> dict:
+    """The --n-spatial (axis "spatial") or --split-forward (axis "model")
+    forwards: this rank's part of its data shard's images through a YOLO
+    partitioned over that axis, per stem, size and dtype."""
+    from tpu_yolo_torch.models.yolov11 import YOLO, space_to_depth_host
     from tpu_yolo_torch.ops.nms import batched_nms
     from tpu_yolo_torch.parallel.spatial import partition_spatial
 
-    size = args.spatial_size or args.size
-    smesh = parallel.make_spatial_mesh(n_spatial=args.n_spatial, devices=[device])
-    model = YOLO.from_state_dict(cfg, eval_weights(cfg, args.model, args.size, device))
-    model = partition_spatial(model.fold_batchnorm().to(
-        device=device, memory_format=torch.channels_last).eval(), smesh)
-    local = parallel.spatial_batch_sharding(smesh).local(
-        spatial_images(args.global_batch, size))
-    out = {"coords": smesh.coords, "size": size, "rows": list(local.shape[:2]),
-           "forwards": {}}
+    if axis == "spatial":
+        mesh = parallel.make_spatial_mesh(n_spatial=args.n_spatial, devices=[device])
+        sharding, stems = parallel.spatial_batch_sharding(mesh), args.spatial_stem
+    else:
+        mesh = parallel.make_mesh(n_model=args.n_model, devices=[device])
+        sharding, stems = parallel.batch_sharding(mesh), ["plain"]
+    weights = (torch.load(args.weights, map_location="cpu") if args.weights
+               else eval_weights(cfg, args.model, args.size, device))
+    out = {"coords": mesh.coords, "forwards": {}}
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     before = launches()
-    for name in args.spatial_dtype or ["float32"]:
-        x = torch.from_numpy(local).to(device).to(getattr(torch, name)) / 255
-        with torch.inference_mode():
-            model(x)   # the first forward pays the process's warm-up
-            sync()
-            parallel.COLLECTIVES.clear()
-            t0 = time.perf_counter()
-            pred = model(x)
-            sync()
-            ms = (time.perf_counter() - t0) * 1e3
-            counts = batched_nms(pred)["count"]
-        h = hashlib.sha256(pred.float().contiguous().cpu().numpy().tobytes())
-        out["forwards"][name] = {"shape": list(pred.shape), "sha256": h.hexdigest(),
-                                 "counts": counts.tolist(), "forward_ms": ms,
-                                 "collectives": {k: dict(v) for k, v in
-                                                 parallel.COLLECTIVES.items()}}
-        if dump and smesh.coords["spatial"] == 0:   # the group's ranks hold the same
-            dump[f"spatial/{name}"] = pred.float().cpu().numpy()
+    for stem in stems or ["plain"]:
+        model = YOLO.from_state_dict(cfg, weights).fold_batchnorm()
+        if stem != "plain":
+            model.fold_stem_space_to_depth()
+        model = model.to(device=device, memory_format=torch.channels_last).eval()
+        if axis == "spatial":
+            partition_spatial(model, mesh)
+        else:
+            parallel.DataParallel(mesh).shard_model_parallel(model, args.min_channels)
+        for size in args.spatial_size or [args.size]:
+            images = spatial_images(args.global_batch, size)
+            if stem == "s2d-input":
+                images = space_to_depth_host(images)
+            local = sharding.local(images)
+            for name in args.spatial_dtype or ["float32"]:
+                x = torch.from_numpy(local).to(device).to(getattr(torch, name)) / 255
+                with torch.inference_mode():
+                    model(x)   # the first forward pays the process's warm-up
+                    sync()
+                    parallel.COLLECTIVES.clear()
+                    t0 = time.perf_counter()
+                    pred = model(x)
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    counts = batched_nms(pred)["count"]
+                key = f"{stem}/{size}/{name}"
+                h = hashlib.sha256(pred.float().contiguous().cpu().numpy().tobytes())
+                out["forwards"][key] = {
+                    "rows": list(local.shape[:2]), "shape": list(pred.shape),
+                    "sha256": h.hexdigest(), "counts": counts.tolist(), "forward_ms": ms,
+                    "collectives": {k: dict(v) for k, v in parallel.COLLECTIVES.items()}}
+                if dump and mesh.coords.get(axis, 0) == 0:   # the group holds the same
+                    dump[f"{'split' if axis == 'model' else 'spatial'}/{key}"] = (
+                        pred.float().cpu().numpy())
     out["launches"] = {k: v - before[k] for k, v in launches().items()}
     return out
 
