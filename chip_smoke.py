@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from tpu_yolo_torch/csrc, holds each
-against its plain PyTorch version, serves YOLOv11-n at 640 px through
+Builds the port's CUDA sources from tpu_yolo_torch/csrc (the three
+kernels of the TPU's and the card's image kernels, one nvcc each, in
+parallel), holds each kernel against its plain PyTorch version, serves YOLOv11-n at 640 px through
 `Detector` and checks the result against the port on the CPU, then
 trains YOLOv11-n at 640 px and batch 64 in bf16 (one epoch of
 `trainer.train` on a seeded mini-COCO with its per-epoch eval of 64 val
@@ -39,10 +40,16 @@ interpreter on the host at batches 1 and 2 against the live f32 forward
 on the card (TF32 off, the attention kernel counted), and `--export
 both` through the CLI; and the trainer with `--native-train auto` and
 `--tensorboard` on phase n's mini-COCO (phase s): the loader it took
-and why, the top-k kernel counted, the event file's scalars or the
-message that disabled it, `--native-train on` refused without the
-native library. Then tensor and spatial parallelism (phase u): two gloo
-ranks sharing the card train v11-n with its wide convs split over a
+(nvjpeg), the top-k kernel counted, the event file's scalars or the
+message that disabled it. Then the port's own data path on the card
+(phase w): JPEGs decoded by nvJPEG and placed by the image kernels through
+staged and host-letterbox serving, `run_test` with `--native-eval auto`
+and a device-augment epoch, each image kernel counted there and held
+against its plain version; the decode held against cv2's within a bound
+that each control exceeds; the staged detections against the cv2
+stager's beside a witness; mAP against the Python loader's; every rate
+beside the cv2 form's. Then data parallelism (phase t); tensor and
+spatial parallelism (phase u): two gloo ranks sharing the card train v11-n with its wide convs split over a
 model axis, then run the forward of 1280 px images split by height,
 each held against one process with no group and against witnesses that
 repeat the ranks' split arithmetic in one process. Then what the JAX
@@ -120,6 +127,25 @@ ARTIFACT_BATCHES = 10  # phase o: timed batches per process
 # phase k's time at (128, 960 -> 640) when the products ran in TF32 (H100)
 TF32_LETTERBOX_MS = (8.69, 8.77)
 DA_IMAGES = 256      # phase n: the seeded mini-COCO, 4 steps an epoch
+# phase w: the card's data path on phase m's kind of JPEGs, and run_test's
+# mAP with it against the Python loader's
+W_FILES = 128
+W_MAP_TOL = 0.01
+# nvJPEG's decode against cv2's (libjpeg's), per set of JPEGs: the mean
+# |difference| stays under W_DECODE_GAP levels and every channel's mean
+# difference under W_CHANNEL_GAP; the controls (nvJPEG's own RGB, which
+# replicates the chroma; the channels swapped; cv2's pixels moved by +-1)
+# must exceed W_DECODE_GAP, so that the gate can fail
+W_DECODE_GAP = 0.2
+W_CHANNEL_GAP = 0.05
+# staged serving: the detections of the nvjpeg stager matched both ways
+# against the cv2 stager's (phase f's criterion) fall no more than
+# W_WITNESS_SLACK below a witness's: the cv2 stager with as many values
+# moved by one level as nvJPEG's differ from it, streamed alike, the same
+# noise on the random weights; phase f's 98% is printed beside it
+W_WITNESS_SLACK = 0.05
+W_MATCH = 0.98
+CARD_KERNELS = ("ycc_to_rgb", "resize_bilinear", "resize_generic", "place")
 INT8_CALIB_FILES = 16  # phase p: the seeded JPEGs Detector.quantize calibrates on
 INT8_SUMS_IMAGES = 8   # phase p: images of the int8 sums check, card vs CPU
 INT8_DETECT_FILES = 8  # phase p: JPEGs of `detect --int8`
@@ -370,7 +396,8 @@ def main() -> int:
 
     from tpu_yolo_torch.core.config import get_model_config
     from tpu_yolo_torch.models.yolov11 import YOLO
-    from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda, topk_cuda
+    from tpu_yolo_torch.ops import (attention_cuda, blocks, image_cuda, nms, nms_cuda,
+                                    topk_cuda)
     from tpu_yolo_torch.seeded import nms_scene, seeded_images, serving_state
     from tpu_yolo_torch.serve import Detector
 
@@ -390,12 +417,12 @@ def main() -> int:
     check(np.lib.NumpyVersion(np.__version__) >= "2.0.0",
           f"numpy {np.__version__}: eval needs numpy >= 2.0 (np.trapezoid)")
 
-    # (b) build the three kernels, one nvcc each, in parallel
+    # (b) build the four kernel sources, one nvcc each, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         reports = list(pool.map(lambda build: build(),
                                 (attention_cuda.build, nms_cuda.build,
-                                 topk_cuda.build)))
+                                 topk_cuda.build, image_cuda.build)))
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          ptxas=[line.strip() for r in reports for line in r.splitlines()
                 if "registers" in line or "spill" in line])
@@ -619,15 +646,19 @@ def main() -> int:
     _onnx_phase(cfg, smi, state, imgs, launches)
 
     # (n) the trainer with --device-augment beside the host loader
-    _train_device_augment_phase(cfg, smi, launches)
+    augment = _train_device_augment_phase(cfg, smi, launches)
 
     # (s) the trainer with --native-train auto and --tensorboard
-    native_epoch = _native_train_phase(cfg, smi, launches)
+    native = _native_train_phase(cfg, smi, launches)
+
+    # (w) the port's own data path on the card: nvJPEG and the placement
+    # kernels through serving, eval and the trainer, beside cv2
+    _card_decode_phase(cfg, smi, state, captured, launches, val_split, augment, native)
 
     # (t) data parallelism: a one-rank NCCL run of --train and --test
     # --distributed, two gloo ranks sharing the card, Detector(dp=...),
     # the preflight
-    _data_parallel_phase(cfg, smi, state, imgs, launches, native_epoch, val_split)
+    _data_parallel_phase(cfg, smi, state, imgs, launches, native["epoch"], val_split)
 
     # (u) tensor and spatial parallelism: two gloo ranks sharing the card
     # on a (data 1, model 2) mesh, then a (data 1, spatial 2) one, beside
@@ -1870,10 +1901,11 @@ def _onnx_phase(cfg, smi, state, imgs, launches):
 def _native_train_phase(cfg, smi, launches):
     """Phase (s): the trainer one epoch with --native-train auto and
     --tensorboard on phase n's seeded mini-COCO (v11-n, 640 px, batch 64,
-    bf16): the loader it takes and why, the top-k kernel counted; without
-    the native library --native-train on must raise its message, and where
-    the library loads the native loader's img/s beside the host loader's.
-    Returns the trainer's epoch line."""
+    bf16): on the card auto takes the native loader with its sources
+    decoded and prescaled by nvJPEG and the placement kernels (`[train]
+    loader: nvjpeg`), the top-k kernel counted; then that loader's img/s
+    alone beside the host loader's. Returns the epoch line, the loader
+    line and the top-k launches."""
     import contextlib
     import io
 
@@ -1883,11 +1915,11 @@ def _native_train_phase(cfg, smi, launches):
     from tpu_yolo_torch.data import native_loader
     from tpu_yolo_torch.data.dataset import DetectionDataset, split_files
     from tpu_yolo_torch.data.loader import DataLoader
+    from tpu_yolo_torch.data.native_train import NativeTrainLoader
     from tpu_yolo_torch.ops import topk_cuda
     from tpu_yolo_torch.train import trainer
 
-    available = native_loader.available()
-    why = native_loader.why_unavailable()
+    host_library = native_loader.why_unavailable()
     steps = DA_IMAGES // TRAIN_BATCH
     with tempfile.TemporaryDirectory() as tmp:
         data_dir, _ = _mini_coco()
@@ -1912,10 +1944,8 @@ def _native_train_phase(cfg, smi, launches):
         lines = out.getvalue().strip().splitlines()
         print("\n".join(lines), flush=True)
         loader_line = [ln for ln in lines if ln.startswith("[train] loader: ")]
-        want = ("[train] loader: native" if available
-                else "[train] loader: host (--native-train auto: ")
-        check(state.step == steps and topk == steps and len(loader_line) == 1
-              and loader_line[0].startswith(want),
+        check(state.step == steps and topk == steps
+              and loader_line == ["[train] loader: nvjpeg"],
               f"--native-train auto: {state.step} steps, {topk} top-k launches, {lines}")
         launches["native_train_topk"] = topk
         del state
@@ -1936,39 +1966,442 @@ def _native_train_phase(cfg, smi, launches):
             check(len(events) == 1 and {"loss/box", "loss/cls", "loss/dfl", "val/mAP"}
                   <= set(tags), f"--tensorboard: {tensorboard}")
 
-        refusal, rates = None, None
-        if not available:
-            try:
-                trainer.train(args("on", "on"), load_hyperparams(), cfg, device="cuda")
-            except RuntimeError as e:
-                refusal = str(e)
-            check(refusal is not None and refusal.startswith(
-                "--native-train on requires native/libtpuyolo_data.so"),
-                f"--native-train on without the library: {refusal}")
-        else:
-            from tpu_yolo_torch.data.native_train import NativeTrainLoader
-
-            files = split_files(data_dir, "train2017")
-            cache = os.path.join(data_dir, "train2017.cache.npy")
-            hyp = load_hyperparams()
-            loaders = {
-                "native": NativeTrainLoader(files, SIZE, hyp, TRAIN_BATCH,
-                                            cache_path=cache, threads=8, seed=SEED),
-                "host": DataLoader(DetectionDataset(files, SIZE, hyp, augment=True,
-                                                    cache_path=cache), TRAIN_BATCH,
-                                   shuffle=True, num_workers=8, drop_last=True)}
-            rates = {}
-            for name, loader in loaders.items():
-                t0 = time.perf_counter()
-                n = TRAIN_BATCH * sum(1 for _ in loader)
-                rates[name] = n / (time.perf_counter() - t0)
+        files = split_files(data_dir, "train2017")
+        cache = os.path.join(data_dir, "train2017.cache.npy")
+        hyp = load_hyperparams()
+        loaders = {
+            "native_nvjpeg": NativeTrainLoader(files, SIZE, hyp, TRAIN_BATCH,
+                                               cache_path=cache, threads=8, seed=SEED,
+                                               device="cuda"),
+            "host": DataLoader(DetectionDataset(files, SIZE, hyp, augment=True,
+                                                cache_path=cache), TRAIN_BATCH,
+                               shuffle=True, num_workers=8, drop_last=True)}
+        rates = {}
+        for name, loader in loaders.items():
+            t0 = time.perf_counter()
+            n = TRAIN_BATCH * sum(1 for _ in loader)
+            rates[name] = n / (time.perf_counter() - t0)
+    epoch = [ln for ln in lines if ln.startswith("epoch ")][-1]
     emit("native_train", nvidia_smi=smi, model="v11-n", size=SIZE, batch=TRAIN_BATCH,
-         dtype="bfloat16", images=DA_IMAGES, native_available=available,
-         unavailable_because=why, loader_line=loader_line[0], topk_launches=topk,
-         train_s=train_s, epoch=[ln for ln in lines if ln.startswith("epoch ")][-1],
-         native_on_refusal=refusal, loader_alone_img_per_s=rates,
-         tensorboard=tensorboard)
-    return [ln for ln in lines if ln.startswith("epoch ")][-1]
+         dtype="bfloat16", images=DA_IMAGES, host_library_unavailable_because=host_library,
+         loader_line=loader_line[0], topk_launches=topk, train_s=train_s, epoch=epoch,
+         loader_alone_img_per_s=rates, tensorboard=tensorboard)
+    return dict(epoch=epoch, loader_line=loader_line[0], topk=topk)
+
+
+def _card_decode_phase(cfg, smi, state, captured, launches, val_split, augment, native):
+    """Phase (w): the port's own data path on the card, JPEGs decoded by
+    nvJPEG and placed by the kernels of csrc/image_card.cu.
+
+    The main path, with the three placement kernels' counts at 0: staged
+    serving (`Detector(device_letterbox=True).stream`, stage 960) and the
+    host-letterbox `stream` on phase m's kind of JPEGs (480x640, 640x480,
+    1080x1920), `run_test` with --native-eval auto on phase j's split and
+    a DeviceAugmentLoader epoch over the mixed JPEGs with its random
+    prescale interpolations; each kernel's largest call is captured. Then:
+    w1 each kernel against its plain version at the captured inputs and
+    on nvJPEG's own planes and pixels of each size, in all five
+    interpolations, bit for bit; w2 nvJPEG's decode against cv2's on
+    phase j's noise JPEGs, the smooth ones, the smooth ones at 4:4:4 and a
+    grayscale one, within W_DECODE_GAP and W_CHANNEL_GAP, each control
+    beyond W_DECODE_GAP; w3 staged serving against the cv2 stager: the
+    same dims, nothing outside the images, two passes bit-equal, the
+    detections matched both ways no more than W_WITNESS_SLACK under a
+    witness's (the cv2 stager with as many values moved by one level as
+    nvJPEG's differ, streamed alike: random weights move with any pixel
+    noise), phase f's 98% printed, and the rates of both stagers; w4 run_test's mAP against the Python loader's (within
+    W_MAP_TOL), both eval kernels counted as phase j counts them; w5 the
+    trainer: phase n's --device-augment and phase s's --native-train auto
+    epochs read nvjpeg, launched top-k and have finite losses, beside one
+    --device-augment epoch through the cv2 stager and the loaders alone
+    through cv2. Returns the captured kernel inputs' rows for the kernels
+    line."""
+    import contextlib
+    import io
+    import re
+    import threading
+
+    import cv2
+    import torch
+
+    from tpu_yolo_torch.cli import main as cli
+    from tpu_yolo_torch.core.config import load_hyperparams
+    from tpu_yolo_torch.data import native_loader
+    from tpu_yolo_torch.data.dataset import split_files
+    from tpu_yolo_torch.data.device_augment import DeviceAugmentLoader
+    from tpu_yolo_torch.data.native_train import NativeTrainLoader
+    from tpu_yolo_torch.eval import evaluator
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, nms_cuda, topk_cuda
+    from tpu_yolo_torch.ops import image_cuda as ic
+    from tpu_yolo_torch.serve import Detector, _Cv2Letterbox
+    from tpu_yolo_torch.train import trainer
+
+    hyp = load_hyperparams()
+    real = {name: getattr(ic, name) for name in CARD_KERNELS}
+    lock = threading.Lock()
+
+    def tap(name):
+        def call(*a, **kw):
+            src = a[0] if name != "place" else kw.get("src", a[5] if len(a) > 5 else None)
+            size = 0 if src is None else src.numel()
+            with lock:
+                keep = size > captured.get(f"card_{name}", (None, -1))[1]
+            if keep:
+                args = [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+                kw2 = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                       for k, v in kw.items()}
+                with lock:
+                    captured[f"card_{name}"] = ((args, kw2), size)
+            return real[name](*a, **kw)
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        files = _write_jpegs(os.path.join(tmp, "jpegs"), W_FILES)
+        val_files = split_files(val_split["root"], "val2017")
+        staged = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE,
+                          device="cuda", device_letterbox=True, stage_size=STAGE)
+        host = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+        for det in (staged, host):            # warm both paths
+            list(det.stream(files, batch_size=BATCH))
+        args = argparse.Namespace(
+            weights=val_split["ckpt"], save_dir=tmp, data_dir=val_split["root"],
+            input_size=SIZE, val_batch_size=EVAL_BATCH, workers=8, native_eval="auto",
+            coco_metrics=False, plot=False, max_nms=2048, device="cuda")
+        clock = {}
+        eval_fn = evaluator.evaluate
+
+        def run_test(mode):
+            """run_test with --native-eval `mode`: its result, its lines,
+            the eval kernels' counts and evaluate's wall seconds."""
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return eval_fn(*a, **kw)
+                finally:
+                    clock["evaluate"] = time.perf_counter() - t0
+
+            attention_cuda.fused_attention.launches = 0
+            nms_cuda.greedy_keep.launches = 0
+            evaluator.evaluate = timed
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    result = cli.run_test(argparse.Namespace(**{**vars(args),
+                                                                "native_eval": mode}),
+                                          hyp, cfg)
+                torch.cuda.synchronize()
+            finally:
+                evaluator.evaluate = eval_fn
+            return (list(result), buf.getvalue().strip().splitlines(),
+                    {"attention": attention_cuda.fused_attention.launches,
+                     "nms": nms_cuda.greedy_keep.launches}, clock["evaluate"])
+
+        def stream_rate(det):
+            t0 = time.perf_counter()
+            res = list(det.stream(files * 2, batch_size=BATCH))
+            return len(res) / (time.perf_counter() - t0), res
+
+        def loader_rate(loader):
+            t0 = time.perf_counter()
+            n = sum(b[0].shape[0] for b in loader)
+            torch.cuda.synchronize()
+            return n / (time.perf_counter() - t0)
+
+        # -- the main path, the placement kernels counted ---------------
+        for name in CARD_KERNELS:
+            setattr(ic, name, tap(name))
+        for fn in real.values():
+            fn.launches = 0
+        try:
+            staged_rate, staged_out = stream_rate(staged)
+            host_rate, _ = stream_rate(host)
+            auto = run_test("auto")
+            mixed = DeviceAugmentLoader(files, SIZE, hyp, TRAIN_BATCH, threads=8,
+                                        seed=SEED, device="cuda")
+            da_rate = {"nvjpeg": loader_rate(mixed)}
+            torch.cuda.synchronize()
+        finally:
+            for name in CARD_KERNELS:
+                setattr(ic, name, real[name])
+        path_launches = {name: real[name].launches for name in CARD_KERNELS}
+        launches.update({f"card_{k}": v for k, v in path_launches.items()})
+        check(min(path_launches.values()) > 0,
+              f"a placement kernel did not run on the main path: {path_launches}")
+        check(staged.stager == host.stager == mixed.stager == "nvjpeg",
+              f"stagers {staged.stager}, {host.stager}, {mixed.stager}")
+
+        # -- w1: the kernels against their plain versions ---------------
+        dec = staged._stager._decoders[0]
+
+        def decoded(path, bgr=False):
+            nbytes = dec.read(path)
+            with torch.cuda.stream(dec.stream):
+                img = dec.decode(nbytes, bgr)
+                dec.done.record(dec.stream)
+            torch.cuda.synchronize()
+            return img
+
+        kernel_rows = []
+        for path in files[:3] + val_files[:1]:
+            planes, (hs, vs) = _nvjpeg_planes(dec, path)
+            for bgr in (False, True):
+                kernel_rows.append(dict(
+                    src=list(planes[0].shape), kernel="ycc_to_rgb", subsampling=[hs, vs],
+                    bgr=bgr, equal=bool(torch.equal(
+                        decoded(path, bgr), ic.ycc_to_rgb_plain(*planes, hs, vs, bgr)))))
+            img = decoded(path)
+            h, w = img.shape[:2]
+            for interp in range(5):
+                for dh, dw in ((h // 3, w // 3), (min(2 * h, 960), min(2 * w, 960)),
+                               (640 * h // max(h, w), 640 * w // max(h, w))):
+                    slot = torch.full((968, 968, 3), 7, dtype=torch.uint8, device="cuda")
+                    ic.resize_into(img, slot, dh, dw, interp, 5, 3)
+                    want = (ic.resize_bilinear_plain(img, dh, dw)
+                            if ic.uses_bilinear(interp, w, h, dw, dh)
+                            else ic.resize_generic_plain(img, dh, dw, interp))
+                    kernel_rows.append(dict(
+                        src=[h, w], dst=[dh, dw], interp=interp,
+                        kernel="resize_bilinear" if ic.uses_bilinear(interp, w, h, dw, dh)
+                        else "resize_generic",
+                        equal=bool(torch.equal(slot[5:5 + dh, 3:3 + dw], want))))
+            slot, want = (torch.full((960, 960, 3), 7, dtype=torch.uint8, device="cuda")
+                          for _ in range(2))
+            small = img[:min(h, 960), :min(w, 900)].contiguous()
+            ic.place(slot, 0, 60, small.shape[0], small.shape[1], small)
+            ic.place_plain(want, 0, 60, small.shape[0], small.shape[1], small)
+            kernel_rows.append(dict(src=[h, w], kernel="place",
+                                    equal=bool(torch.equal(slot, want))))
+        torch.cuda.synchronize()
+        check(all(r["equal"] for r in kernel_rows),
+              f"a card kernel differs from its plain version: "
+              f"{[r for r in kernel_rows if not r['equal']]}")
+
+        # -- w2: nvJPEG's decode against cv2's, gated, with controls ----
+        def decode_gap(paths):
+            """Over `paths`: the card decode's gap to cv2 and the controls'
+            (nvJPEG's own RGB, the channels swapped, cv2 moved by +-1)."""
+            rows = {k: [] for k in ("mean", "share", "channel", "own", "swapped",
+                                    "plus_minus_one")}
+            d_max = 0
+            noise_rng = np.random.default_rng(SEED + 11)
+            for p in paths:
+                want = torch.from_numpy(cv2.imread(p)[:, :, ::-1].copy()).cuda().int()
+                got = decoded(p).int()
+                d = (got - want).abs()
+                d_max = max(d_max, int(d.max()))
+                rows["mean"].append(float(d.float().mean()))
+                rows["share"].append(float((d > 0).float().mean()))
+                rows["channel"].append(float((got - want).float().mean((0, 1)).abs().max()))
+                rows["own"].append(float((_nvjpeg_own_rgb(dec, p).int() - want)
+                                         .abs().float().mean()))
+                rows["swapped"].append(float((got.flip(2) - want).abs().float().mean()))
+                moved = (want + torch.from_numpy(noise_rng.integers(
+                    -1, 2, tuple(want.shape))).cuda()).clamp(0, 255)
+                rows["plus_minus_one"].append(float((moved - want).abs().float().mean()))
+            return dict(files=len(paths), max_abs_diff=d_max,
+                        share_differing=float(np.mean(rows["share"])),
+                        mean_abs_diff=float(np.mean(rows["mean"])),
+                        worst_file_mean_abs_diff=float(np.max(rows["mean"])),
+                        worst_channel_mean_diff=float(np.max(rows["channel"])),
+                        controls_mean_abs_diff=dict(
+                            nvjpeg_own_rgb=float(np.mean(rows["own"])),
+                            swapped_channels=float(np.mean(rows["swapped"])),
+                            cv2_plus_minus_one=float(np.mean(rows["plus_minus_one"]))))
+
+        gray = os.path.join(tmp, "gray.jpg")
+        cv2.imwrite(gray, cv2.cvtColor(cv2.imread(files[0]), cv2.COLOR_BGR2GRAY))
+        full = []
+        for i, path in enumerate(files[:6]):
+            full.append(os.path.join(tmp, f"full{i}.jpg"))
+            cv2.imwrite(full[-1], cv2.imread(path), [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                     cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+        decode = {"noise_480x640_phase_j": decode_gap(val_files),
+                  "smooth_mixed_phase_m": decode_gap(files),
+                  "smooth_444": decode_gap(full),
+                  "grayscale_480x640": decode_gap([gray])}
+        emit("card_decode_pixels", nvidia_smi=smi, decode_vs_cv2=decode,
+             bounds=dict(mean_abs_diff=W_DECODE_GAP, channel_mean_diff=W_CHANNEL_GAP))
+        for key, gap in decode.items():
+            check(gap["worst_file_mean_abs_diff"] < W_DECODE_GAP
+                  and gap["worst_channel_mean_diff"] < W_CHANNEL_GAP,
+                  f"nvJPEG's decode against cv2's on {key}: {gap}")
+            controls = gap["controls_mean_abs_diff"]
+            check((key == "grayscale_480x640"   # R = G = B: a swap changes nothing
+                   or controls["swapped_channels"] > W_DECODE_GAP)
+                  and controls["cv2_plus_minus_one"] > W_DECODE_GAP,
+                  f"a control of the decode gate passes it on {key}: {controls}")
+        for key in ("noise_480x640_phase_j", "smooth_mixed_phase_m"):   # 4:2:0
+            check(decode[key]["controls_mean_abs_diff"]["nvjpeg_own_rgb"] > W_DECODE_GAP,
+                  f"nvJPEG's replicated chroma passes the decode gate on {key}")
+
+        # -- w3: staged serving, nvjpeg against the cv2 stager ----------
+        nv_stager, nv_host = staged._stager, host._host_pipe
+        staged._stager = _HostPipeOnCard(native_loader.Cv2Pipeline(8))
+        host._host_pipe = _HostPipeOnCard(_Cv2Letterbox(SIZE, 8))
+        try:
+            list(staged.stream(files, batch_size=BATCH))
+            cv2_staged_rate, cv2_out = stream_rate(staged)
+            cv2_host_rate, _ = stream_rate(host)
+        finally:
+            staged._stager, host._host_pipe = nv_stager, nv_host
+
+        def matched(pairs):
+            """Detections with a partner both ways, pooled over images."""
+            hit, total = [0, 0], [0, 0]
+            for a, b in pairs:
+                agree = _agreement(a, b)
+                for k in range(2):
+                    hit[k] += agree["match"][k] * agree["count"][k]
+                    total[k] += agree["count"][k]
+            return [h / max(t, 1) for h, t in zip(hit, total)], total
+
+        n = len(files)
+        match, total = matched((_one(a), _one(b)) for a, b in zip(staged_out, cv2_out))
+        check(all(np.array_equal(a[k], b[k]) for a, b in zip(staged_out[:n], staged_out[n:])
+                  for k in ("boxes", "scores", "classes")),
+              "the nvjpeg stream's two passes over the same files differ")
+
+        # the same staged batch from both stagers: the geometry exact (dims,
+        # every pixel outside the image zero) and the share of values that
+        # differ; then the witness, streamed as both stagers are: the cv2
+        # stager with as many values moved by one level
+        nv_buf, nv_dims, _ = nv_stager.load_batch_raw(files, STAGE)
+        cv_buf, cv_dims, _ = native_loader.Cv2Pipeline(8).load_batch_raw(files, STAGE)
+        check(np.array_equal(nv_dims, cv_dims), "nvjpeg and cv2 staged dims differ")
+        inside = torch.zeros(nv_buf.shape[:3], dtype=torch.bool, device="cuda")
+        for i, (sh, sw) in enumerate(nv_dims[:, :2].astype(int)):
+            inside[i, :sh, :sw] = True
+        check(not bool(nv_buf[~inside].any()), "nvjpeg staged pixels outside the images")
+        gap = (nv_buf.int() - torch.from_numpy(cv_buf).cuda().int()).abs()[inside].float()
+        share = float((gap > 0).float().mean())
+        del nv_buf, cv_buf, inside
+        staged._stager = _NoisyStager(native_loader.Cv2Pipeline(8), share, SEED + 9)
+        try:
+            witness_out = stream_rate(staged)[1]
+        finally:
+            staged._stager = nv_stager
+        witness = dict(
+            matched_share_vs_cv2=matched((_one(a), _one(b))
+                                         for a, b in zip(witness_out, cv2_out))[0],
+            values_moved_share=share,
+            staged_pixel_gap=dict(mean=float(gap.mean()), share_differing=share,
+                                  max=float(gap.max())))
+        floor = min(witness["matched_share_vs_cv2"]) - W_WITNESS_SLACK
+        emit("card_decode_serving", nvidia_smi=smi, detections_matched_vs_cv2=match,
+             detections=total, witness=witness, gate=floor,
+             phase_f_criterion=dict(threshold=W_MATCH, met=min(match) >= W_MATCH))
+        check(min(match) >= floor,
+              f"staged serving, nvjpeg against the cv2 stager: {match} of {total} "
+              f"matched, under the witness's less {W_WITNESS_SLACK}: {witness}")
+
+        # -- decode-and-place alone, back to back -----------------------
+        alone = {}
+        for key, pipe in (("nvjpeg", nv_stager), ("cv2", native_loader.Cv2Pipeline(8))):
+            pipe.load_batch_raw(files, STAGE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                pipe.load_batch_raw(files, STAGE)
+            torch.cuda.synchronize()
+            alone[key] = 3 * len(files) / (time.perf_counter() - t0)
+
+        # -- w4: eval, nvjpeg against the Python loader ------------------
+        off = run_test("off")
+        loader_lines = [ln for ln in auto[1] + off[1] if ln.startswith("[eval] loader: ")]
+        batches = -(-EVAL_IMAGES // EVAL_BATCH)
+        check(loader_lines == ["[eval] loader: nvjpeg", "[eval] loader: python"],
+              f"eval loader lines {loader_lines}")
+        check(auto[2]["nms"] == batches and auto[2]["attention"] >= batches,
+              f"eval kernels with the nvjpeg loader: {auto[2]}, {batches} batches")
+        map_gap = abs(auto[0][0] - off[0][0])
+        check(map_gap <= W_MAP_TOL, f"eval mAP nvjpeg {auto[0]} vs python {off[0]}")
+
+        # -- w5: the trainer ----------------------------------------------
+        def finite_epoch(line):
+            vals = re.findall(r"(box|cls|dfl) (\S+)", line)
+            return len(vals) == 3 and all(np.isfinite(float(v)) for _, v in vals)
+
+        da_line = augment["runs"]["device_mosaic"]
+        check(da_line["stager"] == "[train] device augment: stager nvjpeg"
+              and da_line["topk_launches"] > 0 and finite_epoch(da_line["last_epoch"]),
+              f"--device-augment through nvjpeg: {da_line}")
+        check(native["loader_line"] == "[train] loader: nvjpeg" and native["topk"] > 0
+              and finite_epoch(native["epoch"]),
+              f"--native-train auto through nvjpeg: {native}")
+        data_dir, _ = _mini_coco()
+        train_files = split_files(data_dir, "train2017")
+        cache = os.path.join(data_dir, "train2017.cache.npy")
+        choose = native_loader.staging_pipeline
+        native_loader.staging_pipeline = \
+            lambda input_size, threads=8, device=None: native_loader.Cv2Pipeline(threads)
+        try:
+            da_rate["cv2"] = loader_rate(DeviceAugmentLoader(
+                files, SIZE, hyp, TRAIN_BATCH, threads=8, seed=SEED, pin_memory=True))
+            cv2_args = argparse.Namespace(
+                model_size="n", input_size=SIZE, batch_size=TRAIN_BATCH, epochs=1,
+                data_dir=data_dir, save_dir=os.path.join(tmp, "da_cv2"), resume="",
+                weights="", workers=8, gt_bucket=0, remat=False, remat_level="stage",
+                tensorboard=False, val_batch_size=EVAL_BATCH, native_eval="off",
+                max_nms=2048, device_augment=True, seed=SEED)
+            topk_cuda.topk_mask.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer.train(cv2_args, hyp, cfg, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            native_loader.staging_pipeline = choose
+        cv2_lines = buf.getvalue().strip().splitlines()
+        cv2_epoch = [ln for ln in cv2_lines if ln.startswith("epoch ")][-1]
+        check("[train] device augment: stager cv2" in cv2_lines
+              and topk_cuda.topk_mask.launches > 0 and finite_epoch(cv2_epoch),
+              f"--device-augment through cv2: {cv2_lines}")
+        nt = {}
+        for key in ("nvjpeg", "cv2"):
+            loader = NativeTrainLoader(train_files, SIZE, hyp, TRAIN_BATCH,
+                                       cache_path=cache, threads=8, seed=SEED,
+                                       device="cuda")
+            if key == "cv2":
+                loader._pipe, loader.stager = native_loader.Cv2Pipeline(8), "cv2"
+            nt[key] = loader_rate(loader)
+
+        def epoch_rate(line):
+            m = re.search(r"s, ([\d.]+) img/s\)", line)
+            return float(m.group(1)) if m else None
+
+    emit("card_decode", nvidia_smi=smi, model="v11-n", size=SIZE, dtype="bfloat16",
+         stage=STAGE, files=W_FILES, main_path_launches=path_launches,
+         fallbacks_to_cv2=dict(staged=nv_stager.fallbacks, host=nv_host.fallbacks),
+         kernels_vs_plain=dict(cases=len(kernel_rows),
+                               equal=sum(r["equal"] for r in kernel_rows)),
+         decode_vs_cv2=decode,
+         staged_serving=dict(stager=staged.stager, img_per_s=dict(
+             nvjpeg=staged_rate, cv2=cv2_staged_rate),
+             host_letterbox_img_per_s=dict(nvjpeg=host_rate, cv2=cv2_host_rate),
+             detections_matched_vs_cv2=match, detections=total,
+             sensitivity_witness=witness, phase_f_criterion_met=min(match) >= W_MATCH,
+             gates=f"stager nvjpeg; dims equal to the cv2 stager's; zero outside "
+             f"every image; two passes bit-equal; detections matched both ways "
+             f">= the witness's less {W_WITNESS_SLACK}"),
+         decode_and_place_alone_img_per_s=alone,
+         eval=dict(loader_lines=loader_lines, launches_nvjpeg=auto[2],
+                   launches_python=off[2], map_tuple_nvjpeg=auto[0],
+                   map_tuple_python=off[0], map_abs_gap=map_gap, threshold=W_MAP_TOL,
+                   img_per_s=dict(nvjpeg=EVAL_IMAGES / auto[3],
+                                  python=EVAL_IMAGES / off[3])),
+         trainer=dict(
+             device_augment_epoch_img_per_s=dict(
+                 nvjpeg=da_line["epoch_img_per_s"], cv2=epoch_rate(cv2_epoch)),
+             device_augment_topk=dict(nvjpeg=da_line["topk_launches"],
+                                      cv2=topk_cuda.topk_mask.launches),
+             native_train_epoch_img_per_s=dict(
+                 nvjpeg=epoch_rate(native["epoch"]),
+                 host_loader_cv2=augment["runs"]["host_loader"]["epoch_img_per_s"]),
+             native_train_topk=native["topk"],
+             epochs=dict(device_augment_nvjpeg=da_line["last_epoch"],
+                         device_augment_cv2=cv2_epoch, native_train=native["epoch"]),
+             loader_alone_img_per_s=dict(device_augment_mixed_sizes=da_rate,
+                                         native_train=nt)))
 
 
 def _augment_params(mode: str, b: int, hyp: dict, dims, seed: int, general=False):
@@ -2078,6 +2511,105 @@ def _augment_phase(dev, smi):
          card_vs_cpu=rows, threshold=f"card vs CPU: {PIXEL_GATE}", timed=timed)
 
 
+class _HostPipeOnCard:
+    """A host pipeline (cv2's, or the host copy's) behind a card
+    Detector: it decodes into a pinned host batch and copies that into
+    the Detector's device batch on the current stream, as a Detector on
+    the card staged before it had a decoder there. Phase m's f32 check
+    and phase w's cv2 rates put it in a card Detector's place."""
+
+    def __init__(self, pipe):
+        self.pipe, self.stager, self.fallbacks = pipe, pipe.stager, 0
+
+    def _up(self, load, out):
+        import torch
+
+        host = torch.empty(tuple(out.shape), dtype=torch.uint8, pin_memory=True)
+        _, rows, nfail = load(host.numpy())
+        out.copy_(host, non_blocking=True)
+        return out, rows, nfail
+
+    def load_batch_raw(self, paths, stage, out):
+        return self._up(lambda host: self.pipe.load_batch_raw(paths, stage, out=host), out)
+
+    def load_batch(self, paths, out):
+        return self._up(lambda host: self.pipe.load_batch(paths, out=host), out)
+
+
+class _NoisyStager(_HostPipeOnCard):
+    """_HostPipeOnCard whose staged images have a `share` of their values
+    moved by one level up or down (seeded, on the card): phase w's
+    witness of how far that much pixel noise moves the detections."""
+
+    def __init__(self, pipe, share: float, seed: int):
+        import torch
+
+        super().__init__(pipe)
+        self.share = share
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def load_batch_raw(self, paths, stage, out):
+        import torch
+
+        out, dims, nfail = super().load_batch_raw(paths, stage, out)
+        inside = torch.zeros(out.shape[:3], dtype=torch.bool, device=out.device)
+        for i, (sh, sw) in enumerate(dims[:, :2].astype(int)):
+            inside[i, :max(sh, 0), :max(sw, 0)] = True
+        step = torch.randint(0, 2, out.shape, generator=self.gen, device=out.device) * 2 - 1
+        moved = torch.rand(out.shape, generator=self.gen, device=out.device) < self.share
+        step = step * (moved & inside[..., None])
+        out.copy_((out.int() + step).clamp(0, 255).to(torch.uint8))
+        return out, dims, nfail
+
+
+def _nvjpeg_planes(dec, path):
+    """nvJPEG's planar YCbCr of a colour JPEG through a card decoder `dec`
+    (data/native_loader.py::_Decoder), as its decode takes them: (Y, Cb,
+    Cr) on the card and (hs, vs), or None where the decode is nvJPEG's
+    own RGB."""
+    import ctypes
+
+    import torch
+
+    n = dec.read(path)
+    dims = [ctypes.c_int(0) for _ in range(7)]
+    check(dec.lib.ic_image_info(dec.handle, dec.pinned.ctypes.data, n,
+                                *(ctypes.byref(d) for d in dims)) == 0, path)
+    w, h, _, hs, vs, cw, ch = (d.value for d in dims)
+    if not hs:
+        return None
+    y = torch.empty((h, w), dtype=torch.uint8, device="cuda")
+    cb, cr = (torch.empty((ch, cw), dtype=torch.uint8, device="cuda") for _ in range(2))
+    with torch.cuda.stream(dec.stream):
+        check(dec.lib.ic_decode_planes(dec.handle, dec.pinned.ctypes.data, n,
+                                       y.data_ptr(), w, cb.data_ptr(), cr.data_ptr(),
+                                       cw, dec.stream.cuda_stream) == 0, path)
+        dec.done.record(dec.stream)
+    torch.cuda.synchronize()
+    return (y, cb, cr), (hs, vs)
+
+
+def _nvjpeg_own_rgb(dec, path, bgr=False):
+    """nvJPEG's own interleaved RGB of `path` (its chroma replicated): the
+    decode the card pipeline does not use for colour JPEGs, a control."""
+    import ctypes
+
+    import torch
+
+    n = dec.read(path)
+    dims = [ctypes.c_int(0) for _ in range(7)]
+    check(dec.lib.ic_image_info(dec.handle, dec.pinned.ctypes.data, n,
+                                *(ctypes.byref(d) for d in dims)) == 0, path)
+    w, h = dims[0].value, dims[1].value
+    img = torch.empty((h, w, 3), dtype=torch.uint8, device="cuda")
+    with torch.cuda.stream(dec.stream):
+        check(dec.lib.ic_decode(dec.handle, dec.pinned.ctypes.data, n, int(bgr),
+                                img.data_ptr(), 3 * w, dec.stream.cuda_stream) == 0, path)
+        dec.done.record(dec.stream)
+    torch.cuda.synchronize()
+    return img
+
+
 def _write_jpegs(root: str, n: int) -> list[str]:
     """n seeded JPEGs of 480x640, 640x480 and 1080x1920 in turn."""
     import cv2
@@ -2136,15 +2668,17 @@ def _serve_staged_phase(cfg, smi, state, launches):
         for det, key in ((host, "host_letterbox"), (staged, "staged"),
                          (host, "host_letterbox")):
             rates[key].append(timed(det)[0])
-        # the host's decode alone, into the same kind of buffer, per path
+        # the decode alone, into the same kind of buffer, per path (on the
+        # card: nvJPEG and the placement kernels into a device batch)
         decode = {}
         for key, size, run in (
                 ("staged_raw", STAGE, staged._decode_batch_raw),
                 ("host_letterbox", SIZE, host._decode_batch)):
-            buf = np.zeros((BATCH, size, size, 3), np.uint8)
+            buf = torch.zeros((BATCH, size, size, 3), dtype=torch.uint8, device="cuda")
             t0 = time.perf_counter()
             for lo in range(0, STAGED_FILES, BATCH):
                 run(files[lo:lo + BATCH], buf[:len(files[lo:lo + BATCH])])
+            torch.cuda.synchronize()
             decode[key] = STAGED_FILES / (time.perf_counter() - t0)
         # the H2D copy of one pinned batch per path
         h2d_ms = {}
@@ -2153,19 +2687,22 @@ def _serve_staged_phase(cfg, smi, state, launches):
             h2d_ms[key] = cuda_ms(lambda buf=buf: buf.to("cuda", non_blocking=True),
                                   iters=5)
 
-        # f32 on the card (TF32 off) against the CPU, through the staged path
+        # f32 on the card (TF32 off) against the CPU, through the staged
+        # path; the card Detector stages through the CPU's stager, so that
+        # both run the model on the same pixels (phase w holds nvJPEG's)
         two = [files[0], files[2]]
         kw = dict(input_size=SIZE, compute_dtype=torch.float32, ranking="exact",
                   device_letterbox=True, stage_size=STAGE)
+        on_cpu = Detector(YOLO.from_state_dict(cfg, state), device="cpu", **kw)
+        cpu = list(on_cpu.stream(two, batch_size=2, rescale=False))
+        on_card = Detector(YOLO.from_state_dict(cfg, state), device="cuda", **kw)
+        on_card._stager = _HostPipeOnCard(on_cpu._stager)
         cudnn_tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            card = list(Detector(YOLO.from_state_dict(cfg, state), device="cuda", **kw)
-                        .stream(two, batch_size=2, rescale=False))
+            card = list(on_card.stream(two, batch_size=2, rescale=False))
         finally:
             torch.backends.cudnn.allow_tf32 = cudnn_tf32
-        cpu = list(Detector(YOLO.from_state_dict(cfg, state), device="cpu", **kw)
-                   .stream(two, batch_size=2, rescale=False))
         f32_rows = [_agreement(_one(a), _one(b)) for a, b in zip(card, cpu)]
         for agree in f32_rows:
             check(min(agree["match"]) >= 0.98 and agree["max_box_err_px"] <= 0.05
@@ -2257,7 +2794,8 @@ def _train_device_augment_phase(cfg, smi, launches):
         for name, mosaic in (("device_mosaic", 1.0), ("device_plain", 0.0)):
             loaders[name] = DeviceAugmentLoader(
                 files, SIZE, dict(load_hyperparams(), mosaic=mosaic), TRAIN_BATCH,
-                cache_path=cache, threads=8, seed=SEED, pin_memory=True)
+                cache_path=cache, threads=8, seed=SEED, pin_memory=True,
+                device="cuda")
         loaders["host_loader"] = DataLoader(
             DetectionDataset(files, SIZE, load_hyperparams(), augment=True,
                              cache_path=cache), TRAIN_BATCH, shuffle=True,
@@ -2266,11 +2804,13 @@ def _train_device_augment_phase(cfg, smi, launches):
         for name, loader in loaders.items():
             t0 = time.perf_counter()
             n = TRAIN_BATCH * sum(1 for _ in loader)
+            torch.cuda.synchronize()
             loader_rates[name] = n / (time.perf_counter() - t0)
     emit("train_device_augment", nvidia_smi=smi, model="v11-n", size=SIZE,
          batch=TRAIN_BATCH, dtype="bfloat16", images=DA_IMAGES, epochs=epochs,
          write_images_seconds=write_s, runs=runs, loader_alone_img_per_s=loader_rates,
          stager=loaders["device_mosaic"].stager)
+    return dict(runs=runs, loader_alone_img_per_s=loader_rates)
 
 
 _RANK_CHILD = r"""
@@ -3328,7 +3868,131 @@ def _kernel_rows(captured, launches):
         plain_ms=cuda_ms(lambda: topk_cuda.topk_mask_plain(x, TOP_K), iters=5),
         bound_ms=bound, bound_by=bound_by,
         library_ms=cuda_ms(library, iters=5, graph=True)))
+    kernels += _card_kernel_rows(captured, launches)
     return kernels
+
+
+# the host C++ functions that the card's placement kernels compute: no
+# TPU kernel has them (the JAX package runs them on its host)
+CARD_KERNEL_REPLACES = {
+    "ycc_to_rgb": "tpu_yolo_torch/csrc/image_pipeline.cc:53",
+    "resize_bilinear": "tpu_yolo_torch/csrc/image_pipeline.cc:115",
+    "resize_generic": "tpu_yolo_torch/csrc/image_pipeline.cc:269",
+    "place": "tpu_yolo_torch/csrc/image_pipeline.cc:354"}
+
+
+def _card_kernel_rows(captured, launches):
+    """The card's image kernels at the largest inputs phase w's main path
+    gave them: bit-equal to their plain versions (checked), times (`ms`
+    from launches replayed out of a CUDA graph), the byte bound, and the
+    nearest PyTorch call where there is one (`library_call` names it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_yolo_torch.ops import image_cuda as ic
+
+    rows = []
+    for name in CARD_KERNELS:
+        (a, kw), _ = captured[f"card_{name}"]
+        out = a[1] if name != "place" else a[0]
+        if name == "ycc_to_rgb":
+            y, cb, cr, out, hs, vs = a[:6]
+            bgr = a[6] if len(a) > 6 else kw.get("bgr", False)
+
+            def kernel():
+                ic.ycc_to_rgb(y, cb, cr, out, hs, vs, bgr)
+
+            def plain():
+                return ic.ycc_to_rgb_plain(y, cb, cr, hs, vs, bgr)
+
+            nbytes = y.numel() + cb.numel() + cr.numel() + out.numel()
+            library, call = None, None
+            shape = dict(y=list(y.shape), chroma=list(cb.shape), subsampling=[hs, vs],
+                         bgr=bool(bgr))
+        elif name == "place":
+            top, left, h, w = a[1:5]
+            src = kw.get("src", a[5] if len(a) > 5 else None)
+
+            def kernel():
+                ic.place(out, top, left, h, w, src)
+
+            def plain():
+                ic.place_plain(out, top, left, h, w, src)
+
+            s_size = out.shape[0]
+            nbytes = out.numel() + (0 if src is None else src.numel())
+            library, call = None, None
+            if src is not None:
+                pads = (0, 0, left, s_size - left - w, top, s_size - top - h)
+                library, call = (lambda: F.pad(src, pads)), "F.pad(src, zeros)"
+            shape = dict(slot=list(out.shape), image=[h, w], top=top, left=left,
+                         copies=src is not None)
+        else:
+            src, dh, dw = a[0], a[2], a[3]
+            interp = a[4] if name == "resize_generic" else ic.LINEAR
+            top, left = (a[5:7] if name == "resize_generic" else a[4:6]) or (0, 0)
+            sh, sw = src.shape[:2]
+            region = (slice(top, top + dh), slice(left, left + dw))
+            nbytes = src.numel() + dh * dw * 3
+            shape = dict(src=[sh, sw], dst=[dh, dw], interp=interp)
+            if name == "resize_bilinear":
+                def kernel():
+                    ic.resize_bilinear(src, out, dh, dw, top, left)
+
+                def plain():
+                    return ic.resize_bilinear_plain(src, dh, dw)
+            else:
+                lib = ic.library()
+                taps = [torch.from_numpy(t).cuda()
+                        for t in (*ic.make_taps(interp, sw, dw), *ic.make_taps(interp, sh, dh))]
+                tmp = torch.empty((sh, dw, 3), dtype=torch.float32, device="cuda")
+
+                def kernel():   # the wrapper's launch with its taps uploaded
+                    check(lib.ic_resize_generic(
+                        src.data_ptr(), sw, sh,
+                        out.data_ptr() + (top * out.shape[1] + left) * 3,
+                        out.shape[1] * 3, dw, dh, taps[0].data_ptr(), taps[1].data_ptr(),
+                        taps[1].shape[1], taps[2].data_ptr(), taps[3].data_ptr(),
+                        taps[3].shape[1], tmp.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream) == 0, "resize_generic")
+
+                def plain():
+                    return ic.resize_generic_plain(src, dh, dw, interp)
+            mode = {ic.LINEAR: "bilinear", ic.NEAREST: "nearest", ic.CUBIC: "bicubic",
+                    ic.AREA: "area"}.get(interp)
+            library, call = None, None
+            if mode is not None:
+                x = src.permute(2, 0, 1)[None].float().contiguous()
+                library = (lambda: F.interpolate(x, size=(dh, dw), mode=mode))
+                call = f"F.interpolate(float32 NCHW, mode={mode!r})"
+        if name == "ycc_to_rgb":
+            want = plain()
+            kernel()
+            got = out
+        elif name == "place":
+            want, got = out.clone(), out.clone()
+            ic.place_plain(want, top, left, h, w, src)
+            ic.place(got, top, left, h, w, src)
+        else:
+            want = plain()
+            getattr(ic, name)(src, out, dh, dw, *((interp,) if name == "resize_generic"
+                                                  else ()), top, left)
+            got = out[region]
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        check(err == 0, f"{name} kernel vs plain at the main path's inputs: {err}")
+        ms = cuda_ms(kernel, graph=True)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        rows.append(dict(
+            name=f"image_{name}", route="cuda", source="tpu_yolo_torch/csrc/image_card.cu",
+            replaces=CARD_KERNEL_REPLACES[name],
+            replaces_kind="a host C++ function of the data path (no TPU kernel)",
+            launches=launches[f"card_{name}"], max_abs_err=err, shape=shape,
+            ms=ms, ms_with_launch=cuda_ms(kernel), plain_ms=cuda_ms(plain, iters=5),
+            bound_ms=bound, bound_by="bytes", ms_over_bound=ms / bound,
+            library_ms=None if library is None else cuda_ms(library, graph=True),
+            library_call=call))
+    return rows
 
 
 def _keep_times(boxes, cls, valid, thr):
@@ -3416,7 +4080,7 @@ def _agreement(a, b, iou: float = 0.9) -> dict:
         hit = best >= iou
         if not bool(hit.any()):
             return 0.0, 0.0, 0.0
-        return (float(hit.float().mean()),
+        return (int(hit.sum()) / len(hit),   # exact: not a float32 mean
                 float((bx[hit] - by[j[hit]]).abs().max()),
                 float((sx[hit] - sy[j[hit]]).abs().max()))
 

@@ -32,6 +32,8 @@ from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.ops import augment_device as ad
 from tpu_yolo_torch.ops.letterbox import letterbox_batch
 
+from test_torch_card_decode import use_jax_source_library
+
 torch.set_num_threads(1)
 S = 128
 DIMS = [(128, 96), (72, 128), (128, 128), (60, 44)]
@@ -367,8 +369,13 @@ HYPS = {
 
 
 @pytest.mark.parametrize("case", list(HYPS))
-def test_loader_matches_jax(tree, case, tmp_path):
+def test_loader_matches_jax(tree, case, tmp_path, monkeypatch):
+    """The port's loader against tpu_yolo's, the JAX side on its own C++
+    source built as the port builds its copy (no -march: the Makefile's
+    -march=native lets g++ fuse the float resampler's sums, one level
+    off on a few values, tests/test_torch_card_decode.py)."""
     _needs_native()
+    use_jax_source_library(monkeypatch)
     hyp = HYPS[case]
     kw = dict(batch_size=2, threads=2, seed=3)
     want = list(jda.DeviceAugmentLoader(tree, S, hyp, cache_path=str(tmp_path / "j"), **kw))

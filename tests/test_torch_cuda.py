@@ -238,3 +238,190 @@ def test_stream_on_the_card_equals_detect_one(cuda, tmp_path):
     for r, one in zip(streamed, singles):
         np.testing.assert_array_equal(r["classes"], one["classes"])
         np.testing.assert_allclose(r["boxes"], one["boxes"], atol=0.05)
+
+
+@pytest.mark.parametrize("interp", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("src_hw,dst_hw", [((480, 640), (240, 320)),
+                                           ((1080, 1920), (540, 960)),
+                                           ((300, 200), (640, 427)),
+                                           ((37, 1000), (23, 640)),
+                                           ((640, 640), (640, 640))])
+def test_placement_kernels_equal_plain(cuda, interp, src_hw, dst_hw):
+    """resize_bilinear / resize_generic (as resize_into dispatches them)
+    and place against their plain versions on the card, bit for bit: the
+    kernels build with -fmad=false and the plain versions run each
+    product and sum as its own operation."""
+    from tpu_yolo_torch.ops import image_cuda as ic
+
+    rng = np.random.default_rng(interp)
+    src = torch.from_numpy(rng.integers(0, 256, (*src_hw, 3), np.uint8)).to(cuda)
+    (sh, sw), (dh, dw) = src_hw, dst_hw
+    slot = torch.full((dh + 7, dw + 5, 3), 3, dtype=torch.uint8, device=cuda)
+    before = (ic.resize_bilinear.launches, ic.resize_generic.launches)
+    ic.resize_into(src, slot, dh, dw, interp, 7, 5)
+    bilinear = ic.uses_bilinear(interp, sw, sh, dw, dh)
+    want = (ic.resize_bilinear_plain(src, dh, dw) if bilinear
+            else ic.resize_generic_plain(src, dh, dw, interp))
+    torch.cuda.synchronize()
+    assert torch.equal(slot[7:, 5:], want)
+    assert (ic.resize_bilinear.launches - before[0],
+            ic.resize_generic.launches - before[1]) == ((1, 0) if bilinear else (0, 1))
+    got, plain = slot.clone(), slot.clone()
+    ic.place(got, 7, 5, dh, dw)
+    ic.place_plain(plain, 7, 5, dh, dw)
+    big = torch.full((dh + 40, dw + 40, 3), 9, dtype=torch.uint8, device=cuda)
+    got2, plain2 = big.clone(), big.clone()
+    ic.place(got2, 11, 13, dh, dw, want)
+    ic.place_plain(plain2, 11, 13, dh, dw, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain) and torch.equal(got2, plain2)
+
+
+@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 1), (2, 2)])
+@pytest.mark.parametrize("h,w", [(480, 640), (1080, 1920), (37, 251), (17, 3)])
+def test_ycc_kernel_equals_plain(cuda, hs, vs, h, w):
+    """ycc_to_rgb against ycc_to_rgb_plain on random planes, RGB and BGR,
+    bit for bit: both are libjpeg's integer upsampling and conversion."""
+    from tpu_yolo_torch.ops import image_cuda as ic
+
+    rng = np.random.default_rng(h + w + hs + vs)
+    y = torch.from_numpy(rng.integers(0, 256, (h, w), np.uint8)).to(cuda)
+    cb, cr = (torch.from_numpy(rng.integers(0, 256, (-(-h // vs), -(-w // hs)),
+                                            np.uint8)).to(cuda) for _ in range(2))
+    for bgr in (False, True):
+        out = torch.full((h, w, 3), 7, dtype=torch.uint8, device=cuda)
+        before = ic.ycc_to_rgb.launches
+        ic.ycc_to_rgb(y, cb, cr, out, hs, vs, bgr)
+        want = ic.ycc_to_rgb_plain(y, cb, cr, hs, vs, bgr)
+        torch.cuda.synchronize()
+        assert ic.ycc_to_rgb.launches == before + 1
+        assert torch.equal(out, want)
+
+
+# nvJPEG's decode (its IDCT, then libjpeg's upsampling and conversion)
+# against cv2's (libjpeg's): the mean |difference| per image stays under
+# this many levels; the controls (nvJPEG's own RGB with replicated
+# chroma, the channels swapped, cv2's pixels moved by +-1) exceed it. On
+# an H100 the decode read 0.034-0.039 and the controls 4.4-6.8, 43-49 and
+# 0.66 on these JPEGs (0.51 for nvJPEG's own RGB at 4:4:4)
+DECODE_GAP_BOUND = 0.2
+
+
+def _smooth_jpegs(root, rng, sizes, sampling=None):
+    """Seeded photo-like JPEGs (noise at 1/8 size, cubic upsampling), at
+    cv2's chroma `sampling` factor (4:2:0 by default)."""
+    import cv2
+
+    paths = []
+    params = [] if sampling is None else [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+    for i, (h, w) in enumerate(sizes):
+        base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3), np.uint8)
+        paths.append(str(root / f"im{i}_{sampling}.jpg"))
+        cv2.imwrite(paths[-1], cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC),
+                    params)
+    return paths
+
+
+def _decodes(card, path):
+    """The card pipeline's decode of `path` and nvJPEG's own interleaved
+    RGB of it, as host arrays."""
+    dec = card._decoders[0]
+    n = dec.read(path)
+    with torch.cuda.stream(dec.stream):
+        ours = dec.decode(n, False)
+        own = torch.empty_like(ours)
+        assert dec.lib.ic_decode(dec.handle, dec.pinned.ctypes.data, n, 0,
+                                 own.data_ptr(), 3 * own.shape[1],
+                                 dec.stream.cuda_stream) == 0
+        dec.done.record(dec.stream)
+    torch.cuda.synchronize()
+    return ours.cpu().numpy().astype(int), own.cpu().numpy().astype(int)
+
+
+def test_card_decode_against_libjpeg(cuda, tmp_path):
+    """nvJPEG through the card pipeline against cv2 on 4:2:0, 4:2:2 and
+    4:4:4 JPEGs: each image's mean |difference| under DECODE_GAP_BOUND,
+    the channel means within 0.05 levels; every control over the bound.
+    The readings are printed."""
+    import cv2
+    from tpu_yolo_torch.data import native_loader as nl
+
+    rng = np.random.default_rng(1)
+    sizes = [(480, 640), (640, 480), (1080, 1920), (37, 251)]
+    paths = (_smooth_jpegs(tmp_path, rng, sizes)
+             + _smooth_jpegs(tmp_path, rng, sizes[:2], cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422)
+             + _smooth_jpegs(tmp_path, rng, sizes[:2], cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444))
+    card = nl.CardPipeline(640, threads=1, device="cuda")
+    noise = rng.integers(-1, 2, (1080, 1920, 3))
+    for p in paths:
+        want = cv2.imread(p)[:, :, ::-1].astype(int)
+        ours, own = _decodes(card, p)
+        h, w = want.shape[:2]
+        gaps = {"ours": np.abs(ours - want).mean(),
+                "channel_means": np.abs((ours - want).mean((0, 1))).max(),
+                "nvjpeg_own_rgb": np.abs(own - want).mean(),
+                "swapped": np.abs(ours[:, :, ::-1] - want).mean(),
+                "cv2_plus_minus_one": np.abs(np.clip(want + noise[:h, :w], 0, 255)
+                                             - want).mean()}
+        print(p.rsplit("/", 1)[1], (h, w), {k: round(float(v), 4) for k, v in gaps.items()},
+              "max", int(np.abs(ours - want).max()))
+        assert gaps["ours"] < DECODE_GAP_BOUND and gaps["channel_means"] < 0.05, p
+        assert gaps["swapped"] > DECODE_GAP_BOUND
+        assert gaps["cv2_plus_minus_one"] > DECODE_GAP_BOUND
+    # the controls that show the upsampling: nvJPEG's own RGB of the
+    # subsampled smooth JPEGs misses by more than the bound
+    for p in paths[:6]:
+        want = cv2.imread(p)[:, :, ::-1].astype(int)
+        assert np.abs(_decodes(card, p)[1] - want).mean() > DECODE_GAP_BOUND, p
+
+
+def test_card_pipeline_against_cv2(cuda, tmp_path):
+    """The card pipeline's five calls against Cv2Pipeline and the cv2 fill
+    functions: the same shapes, dims and metas (the geometry), pixels
+    within DECODE_GAP_BOUND of libjpeg's on smooth JPEGs and zero outside
+    every image; a PNG through cv2, counted; batches back to back on the
+    side streams equal to one call's."""
+    cv2 = pytest.importorskip("cv2")
+    from tpu_yolo_torch.data import native_loader as nl
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, (h, w) in enumerate([(480, 640), (640, 480), (1080, 1920), (300, 200),
+                                (37, 1000)]):
+        base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3), np.uint8)
+        paths.append(str(tmp_path / f"im{i}.jpg"))
+        cv2.imwrite(paths[-1], cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC))
+    paths.append(str(tmp_path / "x.png"))
+    cv2.imwrite(paths[-1], rng.integers(0, 256, (90, 70, 3), np.uint8))
+    card, ref = nl.CardPipeline(640, threads=3, device="cuda"), nl.Cv2Pipeline(2)
+    stage = 960
+
+    def host_fill(fill, size, width):
+        out = np.zeros((len(paths), size, size, 3), np.uint8)
+        rows = np.zeros((len(paths), width), np.float32)
+        for i, p in enumerate(paths):
+            fill(cv2.imread(p), out[i], rows[i], i)
+        return out, rows
+
+    cases = {
+        "raw": (card.load_batch_raw(paths, stage), ref.load_batch_raw(paths, stage)[:2]),
+        "scaled": (card.load_batch_scaled(paths, 640, bgr=True),
+                   ref.load_batch_scaled(paths, 640, bgr=True)[:2]),
+        "eval": (card.load_batch_eval(paths, 640), host_fill(nl.fb_eval(640), 640, 4)),
+        "letterbox": (card.load_batch(paths),
+                      host_fill(nl.fb_letterbox(640), 640, 5))}
+    torch.cuda.synchronize()
+    for name, ((got, rows, nfail), (want, wrows)) in cases.items():
+        got = got.cpu().numpy()
+        assert got.shape == want.shape and nfail == 0, name
+        np.testing.assert_allclose(rows, wrows, rtol=1e-6, err_msg=name)
+        assert ((got == 0) == (want == 0)).mean() > 0.99, name
+        gap = np.abs(got.astype(int) - want).mean()
+        print(name, "mean |gap|", round(float(gap), 4))
+        assert gap < DECODE_GAP_BOUND, name
+    assert card.fallbacks == 4
+    first = card.load_batch_raw(paths, stage)[0].clone()
+    for _ in range(3):
+        again = card.load_batch_raw(paths, stage)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)

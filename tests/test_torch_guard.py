@@ -1,6 +1,8 @@
 """Rules of the port that its code must keep: no JAX and no tpu_yolo in
-tpu_yolo_torch or chip_smoke.py, and chip_smoke.py refuses to run
-without a CUDA card or without the package beside it."""
+tpu_yolo_torch or chip_smoke.py, no path into the JAX package's
+directories (native/, tpu_yolo/) and no `make -C native` there either,
+and chip_smoke.py refuses to run without a CUDA card or without the
+package beside it."""
 import ast
 import pathlib
 import shutil
@@ -26,6 +28,69 @@ def _imported_roots(path):
 def test_port_imports_no_jax(path):
     banned = {"jax", "jaxlib", "tpu_yolo"} & set(_imported_roots(path))
     assert not banned, f"{path.relative_to(ROOT)} imports {sorted(banned)}"
+
+
+# calls that take a file system path or run a program
+_PATH_CALLS = {"join", "open", "Path", "PurePath", "exists", "isfile", "isdir",
+               "listdir", "glob", "rglob", "CDLL", "LoadLibrary", "run", "Popen",
+               "call", "check_call", "check_output", "chdir", "makedirs", "copy",
+               "copytree", "load", "build", "build_host", "abspath", "realpath"}
+_REFERENCE_DIRS = ("native", "tpu_yolo")
+
+
+def _into_reference(value) -> bool:
+    """A string that names native/ or tpu_yolo/ as a path (not
+    tpu_yolo_torch/)."""
+    return isinstance(value, str) and any(
+        value == d or value.startswith(d + "/") or f"/{d}/" in value
+        for d in _REFERENCE_DIRS)
+
+
+def _paths_into_reference(source: str, name: str = "<source>"):
+    """Lines that build or open a path into native/ or tpu_yolo/: a
+    string naming one given to a call that takes a path or runs a
+    program, or joined with `/`; and lines that run `make -C native` or
+    name the JAX package's host library."""
+    for node in ast.walk(ast.parse(source, name)):
+        if isinstance(node, ast.Call):
+            f = node.func
+            fname = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+            if fname in _PATH_CALLS:
+                for arg in [*node.args, *(k.value for k in node.keywords)]:
+                    if any(isinstance(c, ast.Constant) and _into_reference(c.value)
+                           for c in ast.walk(arg)):
+                        yield node.lineno
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            if any(isinstance(c, ast.Constant) and _into_reference(c.value)
+                   for c in (node.left, node.right)):
+                yield node.lineno
+    for i, line in enumerate(source.splitlines(), 1):
+        if "make -C native" in line or "libtpuyolo_data" in line:
+            yield i
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reaches_no_reference_directory(path):
+    """The port keeps its own copy of what it needs from the JAX package's
+    directories: no module of it, and not chip_smoke.py, opens, loads,
+    builds or runs anything under native/ or tpu_yolo/."""
+    lines = sorted(set(_paths_into_reference(path.read_text(), str(path))))
+    assert not lines, f"{path.relative_to(ROOT)} reaches native/ or tpu_yolo/ " \
+                      f"at lines {lines}"
+
+
+@pytest.mark.parametrize("snippet,flagged", [
+    ('os.path.join(root, "native", "libx.so")', True),
+    ('ctypes.CDLL(os.path.join(here, "native/libx.so"))', True),
+    ('subprocess.run(["make", "-C", "native"])', True),
+    ('open("tpu_yolo/ops/nms_pallas.py")', True),
+    ('pathlib.Path(root) / "tpu_yolo" / "serve.py"', True),
+    ('x = "make -C native"', True),
+    ('os.path.join(root, "tpu_yolo_torch", "csrc")', False),
+    ('row = dict(replaces="tpu_yolo/ops/topk_pallas.py:78")', False),
+    ('cuda_build.build("image_card")', False)])
+def test_the_reference_scan_sees_a_path(snippet, flagged):
+    assert bool(list(_paths_into_reference(snippet))) == flagged
 
 
 def _writes_allow_tf32(path):

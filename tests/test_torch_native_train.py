@@ -24,6 +24,8 @@ from tpu_yolo_torch.data.native_train import (NativeTrainLoader,
 from tpu_yolo_torch.seeded import write_mini_coco
 from tpu_yolo_torch.train import trainer
 
+from test_torch_card_decode import use_jax_source_library
+
 torch.set_num_threads(1)
 
 needs_native = pytest.mark.skipif(not native_loader.available(),
@@ -165,11 +167,14 @@ def test_native_train_loader_matches_jax(train_mini_coco, ext, interp):
 
 @needs_native
 @pytest.mark.parametrize("interps", [None, [3, 2, 1, 0, 4, 1]])
-def test_load_batch_scaled_bgr_matches_jax(train_mini_coco, interps):
+def test_load_batch_scaled_bgr_matches_jax(train_mini_coco, interps, monkeypatch):
     """load_batch_scaled(bgr=True) against tpu_yolo's on JPEGs (libjpeg)
     and PNGs (the cv2 fallback through fb_scaled(bgr=True)): bytes and
     dims equal, and the BGR buffer is the RGB one with channels swapped.
-    Cv2Pipeline's BGR form equals JAX's fallback fill on every image."""
+    Cv2Pipeline's BGR form equals JAX's fallback fill on every image. The
+    JAX side runs its C++ source built as the port builds its copy
+    (tests/test_torch_card_decode.py)."""
+    use_jax_source_library(monkeypatch)
     ours = native_loader.NativePipeline(64, threads=2)
     theirs = jax_native.NativePipeline(64, threads=2)
     for ext in ("jpg", "png"):
@@ -230,17 +235,17 @@ def test_trainer_without_the_library(data_dir, tmp_path, capsys, monkeypatch):
     """Without the library auto falls back to the host loader and says
     why, and on raises the JAX package's message."""
     monkeypatch.setattr(native_loader, "available", lambda: False)
-    monkeypatch.setattr(native_loader, "_why", "make -C native could not run: test")
+    monkeypatch.setattr(native_loader, "_why", "g++ not found: test")
     state = trainer.train(_args(data_dir, tmp_path / "auto", native_train="auto"),
                           _hyp(), TINY, device="cpu")
     assert state.step == 2
-    assert ("[train] loader: host (--native-train auto: make -C native could not "
-            "run: test)") in capsys.readouterr().out
-    with pytest.raises(RuntimeError, match="--native-train on requires "
-                                           "native/libtpuyolo_data.so"):
+    assert ("[train] loader: host (--native-train auto: g++ not found: "
+            "test)") in capsys.readouterr().out
+    with pytest.raises(RuntimeError, match="--native-train on requires the host "
+                                           "data library"):
         trainer.train(_args(data_dir, tmp_path / "on", native_train="on"),
                       _hyp(), TINY, device="cpu")
-    with pytest.raises(RuntimeError, match="needs the native loader"):
+    with pytest.raises(RuntimeError, match="needs the host data library"):
         NativeTrainLoader([], 64, _HYP, batch_size=2)
 
 

@@ -9,9 +9,9 @@
     python -m tpu_yolo_torch.cli.main --export onnx --weights best.ckpt
 
 --device-augment runs the mosaic/affine/HSV/flip augmentation on the
-device; --native-train decodes and prescales training images in the
-native C++ pool and augments them with host cv2 (auto takes it where the
-library builds and loads). `--profile` prints the parameter count and
+device; --native-train decodes and prescales training images natively
+(nvJPEG on the card, the C++ pool on the CPU) and augments them with
+host cv2. `--profile` prints the parameter count and
 GFLOPs of a seeded model and exits; the same banner opens --train.
 `--export` writes the eval forward under save-dir/export_{size}: bare
 `--export` (or `torch`) a `torch.export` program, `onnx` an opset-17
@@ -85,25 +85,33 @@ def parse_args(argv=None):
                         "raise this")
     p.add_argument("--native-eval", default="auto",
                    choices=["auto", "on", "off"],
-                   help="eval data loader: native C++ pipeline when the "
-                        ".so exists (auto, the default), required (on), "
-                        "or the Python cv2 loader (off — the parity "
-                        "oracle path; identical geometry either way)")
+                   help="eval data loader: on a card (auto, the default, "
+                        "and on) JPEGs decoded by nvJPEG and placed on the "
+                        "card ([eval] loader: nvjpeg; a failure to build "
+                        "it raises); on the CPU the native C++ pipeline "
+                        "where it builds (auto; on requires it), else the "
+                        "Python cv2 loader; off: the Python cv2 loader, "
+                        "the parity oracle (identical geometry either way)")
 
     p.add_argument("--native-train", default="off",
                    choices=["auto", "on", "off"],
-                   help="train data loader: decode + prescale in the native "
-                        "C++ pool, augmentation with host cv2 "
-                        "(data/native_train.py; prescale interpolation drawn "
-                        "per source, as the Python loader draws it). off "
-                        "(default) keeps the Python cv2 loader; auto takes "
-                        "the native one where the library builds and loads, "
-                        "else the Python one, and says why; on requires it")
+                   help="train data loader: decode + prescale natively, "
+                        "augmentation with host cv2 (data/native_train.py; "
+                        "prescale interpolation drawn per source, as the "
+                        "Python loader draws it). off (default) keeps the "
+                        "Python cv2 loader; on a card auto and on decode "
+                        "with nvJPEG and prescale on the card ([train] "
+                        "loader: nvjpeg; a failure to build it raises); on "
+                        "the CPU they take the native C++ pool, auto "
+                        "falling back to the Python loader with the reason "
+                        "where it cannot be built")
     p.add_argument("--device-augment", action="store_true",
                    help="run mosaic/affine/HSV/flip augmentation on the "
-                        "device (ops/augment_device.py); the host only "
-                        "decodes (native C++ pool, or cv2 where it cannot "
-                        "be built) and draws the parameters")
+                        "device (ops/augment_device.py); the sources are "
+                        "decoded by nvJPEG and staged on the card (stager "
+                        "nvjpeg), on the CPU by the native C++ pool or cv2 "
+                        "where it cannot be built; the host draws the "
+                        "parameters")
 
     def _nonneg(v):
         iv = int(v)
@@ -190,11 +198,12 @@ def run_test(args, hyp, cfg, max_images: int | None = None, dp=None):
     loader = make_val_loader(
         dataset, args.val_batch_size, num_workers=args.workers,
         native=args.native_eval,
-        shard=None if dp is None else (dp.process_index, dp.process_count))
+        shard=None if dp is None else (dp.process_index, dp.process_count),
+        device=args.device if dp is None else dp.devices[0])
     is_rank0 = parallel.rank() == 0
     if is_rank0:
         print(f"[eval] loader: "
-              f"{'native' if isinstance(loader, NativeEvalLoader) else 'python'}",
+              f"{loader.stager if isinstance(loader, NativeEvalLoader) else 'python'}",
               flush=True)
 
     coco_ctx = None

@@ -342,8 +342,10 @@ class DeviceAugmentLoader:
         -> plain_augment_batch
     params are dicts of numpy arrays (nested for mixup; with "minv" for
     the rotation/shear programs); targets are in the collate() contract.
-    Sources are staged by data/native_loader.py's staging pipeline: the
-    native library where it loads, cv2 otherwise (`stager` says which).
+    Sources are staged by data/native_loader.py's staging pipeline: on a
+    CUDA `device` the card's (nvJPEG and the placement kernels, the staged
+    sources then on the card), else the native library where it loads,
+    cv2 otherwise (`stager` says which: "nvjpeg", "native" or "cv2").
     """
 
     # the host _TRAIN_INTERPS draw set as cv2 enum codes
@@ -353,13 +355,16 @@ class DeviceAugmentLoader:
                  batch_size: int, cache_path: str | None = None,
                  threads: int = 8, seed: int = 0,
                  num_shards: int = 1, shard: int = 0,
-                 interp: str = "random", pin_memory: bool = False):
+                 interp: str = "random", pin_memory: bool = False,
+                 device=None):
         """num_shards/shard: multi-host partition (each process sees a
         disjoint slice of the identically shuffled order; batch_size is
         the per-host batch). `interp`: "random" (default) draws the
         per-source prescale interpolation of the host path
         (data/image.py); "bilinear" pins the deterministic mode.
-        `pin_memory`: stage into pinned memory (needs a card)."""
+        `pin_memory`: stage into pinned memory (needs a card).
+        `device`: a CUDA device stages on the card (a failure to build
+        or launch its pipeline raises); None or the CPU on the host."""
         from tpu_yolo_torch.data import native_loader
 
         if interp not in ("random", "bilinear"):
@@ -380,7 +385,8 @@ class DeviceAugmentLoader:
         self.pin_memory = pin_memory
         self.mosaic = hyp.get("mosaic", 1.0) > 0
         self._epoch = 0
-        self._pipe = native_loader.staging_pipeline(input_size, threads=threads)
+        self._pipe = native_loader.staging_pipeline(input_size, threads=threads,
+                                                    device=device)
         self.stager = self._pipe.stager
         self._staged = self._scan_staged_dims(cache_path)
 
@@ -437,14 +443,19 @@ class DeviceAugmentLoader:
 
     def _stage(self, indices, rng, shape):
         """Decode the sources `indices` into a new (len, St, St, 3) uint8
-        tensor (pinned when pin_memory), viewed as `shape`; returns
-        (tensor, dims (len, 4), n_failures)."""
+        tensor (on the card with the card's pipeline, else on the host,
+        pinned when pin_memory), viewed as `shape`; returns (tensor, dims
+        (len, 4), n_failures)."""
         st = self.input_size
+        paths = [self.filenames[i] for i in indices]
+        interps = self._draw_interps(rng, len(indices))
+        if self.stager == "nvjpeg":
+            buf, dims, nfail = self._pipe.load_batch_scaled(paths, st, interps=interps)
+            return buf.view(shape), dims, nfail
         buf = torch.empty((len(indices), st, st, 3), dtype=torch.uint8,
                           pin_memory=self.pin_memory)
-        _, dims, nfail = self._pipe.load_batch_scaled(
-            [self.filenames[i] for i in indices], st,
-            interps=self._draw_interps(rng, len(indices)), out=buf.numpy())
+        _, dims, nfail = self._pipe.load_batch_scaled(paths, st, interps=interps,
+                                                      out=buf.numpy())
         return buf.view(shape), dims, nfail
 
     def _make_batch(self, primaries, rng, np_rng):
@@ -599,8 +610,8 @@ class DeviceAugmentLoader:
                   "mixup": self._make_batch_mixup,
                   "plain": self._make_batch_plain}
 
-        # one-deep prefetch: stage batch i+1 (C++ or cv2 pool, GIL-free)
-        # while the card trains on batch i
+        # one-deep prefetch: stage batch i+1 (the card's pipeline, or the
+        # C++ or cv2 pool, GIL-free) while the card trains on batch i
         q: queue.Queue = queue.Queue(maxsize=1)
         stop = threading.Event()
 

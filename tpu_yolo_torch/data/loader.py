@@ -139,26 +139,32 @@ class ShardSampler:
 
 
 def make_val_loader(dataset, batch_size: int, num_workers: int = 8,
-                    native: str = "auto", shard=None):
+                    native: str = "auto", shard=None, device=None):
     """The eval loader over `dataset` (DetectionDataset(augment=False)),
-    in dataset order. `native`: "auto" takes the native C++ pipeline
-    (data/native_loader.py::NativeEvalLoader: the same label geometry,
-    decode and letterbox in a GIL-free C++ pool) when its library is
-    there, else the Python loader; "on" requires the native pipeline;
-    "off" takes the Python loader, the parity oracle. `shard`: (index,
-    count) to decode and yield only this process's contiguous part of
-    each batch (shard_rows), for evaluate(dp=...)."""
+    in dataset order. `native`: "auto" and "on" take a NativeEvalLoader
+    (data/native_loader.py: the same label geometry, decode and letterbox
+    in one pass) over, on a CUDA `device`, the card's pipeline (nvJPEG and
+    the placement kernels; a failure to build or launch it raises), else
+    the host C++ pool; off the card "auto" takes the Python loader where
+    the host library is unavailable and "on" raises. "off" takes the
+    Python loader, the parity oracle. `shard`: (index, count) to decode
+    and yield only this process's contiguous part of each batch
+    (shard_rows), for evaluate(dp=...)."""
     if native not in ("auto", "on", "off"):
         raise ValueError(f"native must be auto|on|off, got {native!r}")
     if native != "off":
         from tpu_yolo_torch.data import native_loader as nl
+        if device is not None and str(device).startswith("cuda"):
+            threads = max(num_workers, 1)
+            return nl.NativeEvalLoader(
+                dataset, batch_size, shard=shard, pipeline=nl.CardPipeline(
+                    dataset.input_size, threads=threads, device=device))
         if nl.available():
             return nl.NativeEvalLoader(dataset, batch_size,
                                        threads=max(num_workers, 1), shard=shard)
         if native == "on":
             raise RuntimeError(
-                "native eval loader requested (--native-eval on) but "
-                "native/libtpuyolo_data.so is unavailable; run "
-                "`make -C native`")
+                "native eval loader requested (--native-eval on) but the host "
+                f"data library is unavailable: {nl.why_unavailable()}")
     return DataLoader(dataset, batch_size, shuffle=False,
                       num_workers=num_workers, shard=shard)

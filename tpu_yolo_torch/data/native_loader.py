@@ -1,10 +1,17 @@
-"""The port's ctypes binding to the native C++ data path,
-`native/libtpuyolo_data.so` (built by `make -C native` from
-`native/image_pipeline.cc`): the counterpart of
-`tpu_yolo/data/native_loader.py`.
+"""The port's data paths from files to uint8 batches, the counterpart
+of `tpu_yolo/data/native_loader.py`, in three forms that name themselves
+in `.stager`:
 
-JPEG decode + resize run in a GIL-free C++ thread pool; batches come out
-as contiguous NHWC uint8 RGB:
+  * "native", `NativePipeline`: ctypes over the port's host C++ data path,
+    csrc/image_pipeline.cc, built at first use into tpu_yolo_torch/build/
+    (ops/cuda_build.py::build_host, g++ and libjpeg); JPEG decode and
+    resize in a GIL-free C++ thread pool, batches as NHWC uint8 numpy;
+  * "nvjpeg", `CardPipeline`: the same five calls on a CUDA device, JPEGs
+    decoded by nvJPEG and placed by the kernels of ops/image_cuda.py
+    (csrc/image_card.cu), the batch a uint8 tensor on the card;
+  * "cv2", `Cv2Pipeline`: the staging calls through cv2 alone.
+
+The five calls and their geometry:
   * `load_one` / `load_batch`: decode + one resize + the centred
     letterbox, the serving geometry of `Detector`'s host decode (with
     allow_upscale the ratio is min(S/h, S/w) unclamped, which equals
@@ -18,15 +25,15 @@ as contiguous NHWC uint8 RGB:
     `load_image` contract), for the device augmentation of
     data/device_augment.py and, in BGR order (`bgr=True`), for the host
     augmentation of data/native_train.py.
-A file libjpeg cannot read (PNG, BMP, ...) is decoded by cv2 and placed
-by the same fill function as the JAX package's (`fb_eval`, `fb_raw`,
-`fb_scaled` below), bit for bit.
+A file the decoder cannot read (PNG, BMP, ...) is decoded by cv2 and
+placed by the same fill function as the JAX package's (`fb_eval`,
+`fb_raw`, `fb_scaled` below), bit for bit.
 
-If the library is absent and cannot be built, or does not load,
-`available()` is False: `make_val_loader(native="auto")` then takes the
-Python loader, and `staging_pipeline` a `Cv2Pipeline`, which runs the
-same fill functions on every image of a batch in a thread pool. Each
-pipeline names its form in `.stager` ("native" or "cv2").
+Where the host library cannot be built (no g++ or no libjpeg headers) or
+does not load, `available()` is False and `why_unavailable()` says why:
+on the CPU `make_val_loader(native="auto")` then takes the Python loader,
+and `staging_pipeline` a `Cv2Pipeline`. On a CUDA device the consumers
+take `CardPipeline`, whose build failure raises.
 """
 from __future__ import annotations
 
@@ -41,9 +48,6 @@ import numpy as np
 
 from tpu_yolo_torch.data.augment import corners_to_norm, denorm_corners
 
-_SO_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native", "libtpuyolo_data.so")
-
 _lib = None
 _why = None   # why the library is unavailable, once a load has failed
 _lib_lock = threading.Lock()
@@ -52,23 +56,22 @@ _lib_lock = threading.Lock()
 def _load():
     global _lib, _why
     with _lib_lock:
-        if _lib is not None:
+        if _lib is not None or _why is not None:
             return _lib
-        if not os.path.exists(_SO_PATH):
-            try:  # build on first use where the toolchain and libjpeg exist
-                subprocess.run(["make", "-C", os.path.dirname(_SO_PATH)],
-                               check=True, capture_output=True)
-            except OSError as e:
-                _why = f"make -C native could not run: {e}"
-                return None
-            except subprocess.CalledProcessError as e:
-                tail = e.stderr.decode(errors="replace").strip().splitlines()[-1:]
-                _why = f"make -C native failed: {' '.join(tail)}"
-                return None
+        from tpu_yolo_torch.ops import cuda_build
+
+        try:  # built on first use where g++ and libjpeg exist
+            path = cuda_build.build_host("image_pipeline", ("-ljpeg", "-lpthread"))
+        except RuntimeError as e:
+            lines = str(e).strip().splitlines()
+            err = [ln for ln in lines if "error" in ln] or lines[-1:]
+            _why = f"{lines[0].rstrip(':')}: {err[0].strip()}" if len(lines) > 1 \
+                else lines[0]
+            return None
         try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError as e:  # built for another machine's libraries
-            _why = f"{_SO_PATH} does not load: {e}"
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            _why = f"{path} does not load: {e}"
             return None
         lib.ip_create.restype = ctypes.c_void_p
         lib.ip_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -222,7 +225,7 @@ class NativePipeline:
                  allow_upscale: bool = False):
         lib = _load()
         if lib is None:
-            raise RuntimeError("native library unavailable; run `make -C native`")
+            raise RuntimeError(f"the host data library is unavailable: {_why}")
         self._lib = lib
         self.input_size = input_size
         self.allow_upscale = allow_upscale
@@ -383,38 +386,317 @@ class Cv2Pipeline:
         return self._staged(paths, stage, fb_scaled(stage, interps, bgr), out)
 
 
-def staging_pipeline(input_size: int, threads: int = 8):
-    """The staging pipeline of this machine: NativePipeline where the
-    native library loads, else Cv2Pipeline. Both offer load_batch_raw and
-    load_batch_scaled, and say which they are in `.stager`."""
+_NVJPEG_STATUS = ("success", "not initialized", "invalid parameter", "bad JPEG",
+                  "JPEG not supported", "allocator failure", "execution failed",
+                  "arch mismatch", "internal error", "implementation not supported",
+                  "incomplete bitstream")
+
+
+def _status(code: int) -> str:
+    if code >= 1000:
+        return f"CUDA error {code - 1000}"
+    name = _NVJPEG_STATUS[code] if 0 <= code < len(_NVJPEG_STATUS) else "unknown"
+    return f"nvJPEG status {code} ({name})"
+
+
+class _Decoder:
+    """One decode thread's state on the card: an nvJPEG handle and state,
+    a side stream, a pinned buffer for the file's bytes and the event
+    after its last image's work."""
+
+    def __init__(self, device, lib):
+        import torch
+
+        self.lib, self.device = lib, device
+        self.pinned = np.empty(0, np.uint8)
+        status = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            self.handle = lib.ic_decoder_create(ctypes.byref(status))
+            if not self.handle:
+                raise RuntimeError(f"nvJPEG refused a decoder: {_status(status.value)}")
+            self.stream = torch.cuda.Stream(device)
+            self.done = torch.cuda.Event()
+
+    def __del__(self):
+        if getattr(self, "handle", None):
+            self.done.synchronize()   # nothing of its state in flight
+            self.lib.ic_decoder_destroy(self.handle)
+            self.handle = None
+
+    def read(self, item) -> int:
+        """The bytes of `item` (a path, or bytes) into the pinned buffer,
+        once the card has finished with the last ones; returns their
+        length."""
+        self.done.synchronize()
+        if isinstance(item, (bytes, bytearray)):
+            n = len(item)
+            self._room(n)
+            self.pinned[:n] = np.frombuffer(item, np.uint8)
+            return n
+        with open(item, "rb") as f:
+            n = os.fstat(f.fileno()).st_size
+            self._room(n)
+            if f.readinto(memoryview(self.pinned[:n])) != n:
+                raise OSError(f"{item}: short read")
+        return n
+
+    def _room(self, n: int):
+        if len(self.pinned) < n:
+            import torch
+
+            size = max(n, 2 * len(self.pinned), 1 << 20)
+            self.pinned = torch.empty(size, dtype=torch.uint8, pin_memory=True).numpy()
+
+    def decode(self, n: int, bgr: bool):
+        """The pixels of the bytes read, on the current stream: (h, w, 3)
+        uint8 on the device, or None for bytes nvJPEG does not read. A
+        4:4:4, 4:2:2 or 4:2:0 JPEG is decoded to planar YCbCr and
+        converted by image_cuda.ycc_to_rgb as libjpeg converts it; the
+        rest (grayscale, other subsamplings) in nvJPEG's own RGB."""
+        import torch
+
+        from tpu_yolo_torch.ops import image_cuda
+
+        lib, data = self.lib, self.pinned.ctypes.data
+        dims = [ctypes.c_int(0) for _ in range(7)]
+        st = lib.ic_image_info(self.handle, data, n, *(ctypes.byref(d) for d in dims))
+        w, h, comps, hs, vs, cw, ch = (d.value for d in dims)
+        if st or comps not in (1, 3) or min(w, h) < 1:
+            if st and not lib.ic_undecodable(st):
+                raise RuntimeError(f"nvJPEG failed reading a header: {_status(st)}")
+            return None
+        img = torch.empty((h, w, 3), dtype=torch.uint8, device=self.device)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        if hs:
+            y = torch.empty((h, w), dtype=torch.uint8, device=self.device)
+            cb, cr = (torch.empty((ch, cw), dtype=torch.uint8, device=self.device)
+                      for _ in range(2))
+            st = lib.ic_decode_planes(self.handle, data, n, y.data_ptr(), w,
+                                      cb.data_ptr(), cr.data_ptr(), cw, stream)
+        else:
+            st = lib.ic_decode(self.handle, data, n, int(bgr), img.data_ptr(), 3 * w,
+                               stream)
+        if st:
+            if st < 1000 and lib.ic_undecodable(st):
+                return None
+            raise RuntimeError(f"nvJPEG decode failed: {_status(st)}")
+        if hs:
+            image_cuda.ycc_to_rgb(y, cb, cr, img, hs, vs, bgr)
+        return img
+
+
+class CardPipeline:
+    """NativePipeline's five calls with the decode and the placement on
+    the card (`.stager == "nvjpeg"`): each file's bytes are read in a
+    host thread into that thread's pinned buffer, decoded by nvJPEG into
+    device memory (the entropy decode on the host, in the thread, the
+    rest on the card) and placed into the batch by the kernels of
+    ops/image_cuda.py, which compute what csrc/image_pipeline.cc computes.
+    Each thread works on its own stream; the batch is allocated on the
+    caller's stream, which waits for every decode stream's event before
+    the call returns, and `record_stream` tells the caching allocator.
+
+    The batch and the per-image rows come back as NativePipeline's, with
+    the batch a uint8 tensor on the device. A file nvJPEG does not read
+    (PNG, BMP, CMYK, ...) is decoded by cv2.imread and placed by the same
+    fill function as NativePipeline's fallback, then copied up; such files
+    are counted in `.fallbacks`. A fault of the library or of a launch
+    raises. The chroma upsampling and colour conversion are libjpeg's
+    (ops/image_cuda.py::ycc_to_rgb), the IDCT nvJPEG's, so the pixels
+    differ from libjpeg's by its rounding; the placement is exact."""
+
+    stager = "nvjpeg"
+
+    def __init__(self, input_size: int, threads: int = 8,
+                 allow_upscale: bool = False, device="cuda"):
+        import torch
+
+        from tpu_yolo_torch.ops import image_cuda
+
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"CardPipeline runs on a CUDA device, not {self.device}")
+        lib = image_cuda.library()   # built here: a failure raises now
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.input_size = input_size
+        self.allow_upscale = allow_upscale
+        self.threads = max(threads, 1)
+        self.fallbacks = 0
+        self._free: queue.Queue = queue.Queue()
+        self._decoders = [_Decoder(self.device, lib) for _ in range(self.threads)]
+        for d in self._decoders:
+            self._free.put(d)
+        self._pool = ThreadPoolExecutor(self.threads)
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+    def _out(self, out, n: int, size: int):
+        import torch
+
+        if out is None:
+            return torch.empty((n, size, size, 3), dtype=torch.uint8,
+                               device=self.device)
+        if (not isinstance(out, torch.Tensor) or tuple(out.shape) != (n, size, size, 3)
+                or out.dtype != torch.uint8 or out.device != self.device
+                or not out.is_contiguous()):
+            raise ValueError(f"the batch must be a contiguous ({n}, {size}, {size}, "
+                             f"3) uint8 tensor on {self.device}")
+        return out
+
+    def _run(self, items, size: int, mode, out=None, interps=None,
+             bgr: bool = False, fill_one=None):
+        """Decode and place `items` (paths, or bytes for load_one) into
+        `out`; returns (out, rows (n, 5 or 4), indices nvJPEG did not
+        read). `mode`: "letterbox" or image_cuda's RAW / SCALED / EVAL."""
+        import torch
+
+        from tpu_yolo_torch.ops import image_cuda
+
+        n = len(items)
+        out = self._out(out, n, size)
+        width = 5 if mode == "letterbox" else 4
+        rows = np.zeros((n, width), np.float32)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+
+        def one(i):
+            dec = self._free.get()
+            try:
+                nbytes = dec.read(items[i])
+                with torch.cuda.device(self.device), torch.cuda.stream(dec.stream):
+                    dec.stream.wait_event(ready)   # the batch's last readers
+                    img = dec.decode(nbytes, bgr)
+                    if img is not None:
+                        out.record_stream(dec.stream)
+                        rows[i] = image_cuda.place_image(
+                            img, out[i], mode, size,
+                            image_cuda.LINEAR if interps is None else int(interps[i]),
+                            self.allow_upscale)
+                    dec.done.record(dec.stream)
+                    return img is not None
+            except OSError:
+                return False
+            finally:
+                self._free.put(dec)
+
+        ok = list(self._pool.map(one, range(n)))
+        consumer = torch.cuda.current_stream(self.device)
+        for dec in self._decoders:
+            consumer.wait_event(dec.done)
+        bad = [i for i, good in enumerate(ok) if not good]
+        return out, rows, bad
+
+    def _staged(self, paths, stage: int, mode: int, fill_one, out=None,
+                interps=None, bgr: bool = False):
+        """A staging call: (batch, dims (N, 4), n_failures), the files
+        nvJPEG did not read decoded by cv2 and placed by `fill_one`."""
+        out, dims, bad = self._run(paths, stage, mode, out, interps, bgr)
+        return out, dims, self._fallback(paths, bad, out, dims, fill_one)
+
+    def _fallback(self, paths, bad, out, rows, fill_one) -> int:
+        """NativePipeline._fallback for the card: cv2 decodes, `fill_one`
+        places into a host slot, which is copied up. Returns how many cv2
+        could not read either (zeroed, rows[i, 0] = -1)."""
+        import cv2
+        import torch
+
+        remaining = 0
+        for i in bad:
+            img = cv2.imread(paths[i])   # BGR, any format cv2 knows
+            if img is None:
+                out[i].zero_()
+                rows[i] = 0
+                rows[i, 0] = -1
+                remaining += 1
+                continue
+            self.fallbacks += 1
+            slot = np.empty(tuple(out.shape[1:]), np.uint8)
+            fill_one(img, slot, rows[i], i)
+            out[i].copy_(torch.from_numpy(slot))
+        return remaining
+
+    def load_one(self, jpeg_bytes: bytes):
+        """NativePipeline.load_one on the card: (letterboxed (S, S, 3)
+        uint8 tensor, meta dict). Raises ValueError on bytes nvJPEG does
+        not read."""
+        out, metas, bad = self._run([bytes(jpeg_bytes)], self.input_size, "letterbox")
+        if bad:
+            raise ValueError("JPEG decode failed")
+        m = metas[0]
+        return out[0], {"ratio": float(m[0]), "pad_w": float(m[1]),
+                        "pad_h": float(m[2]), "orig_w": int(m[3]), "orig_h": int(m[4])}
+
+    def load_batch(self, paths: list[str], out=None):
+        """NativePipeline.load_batch on the card: (batch, metas (N, 5),
+        n_failures)."""
+        s = self.input_size
+        out, metas, bad = self._run(paths, s, "letterbox", out)
+        return out, metas, self._fallback(
+            paths, bad, out, metas, fb_letterbox(s, self.allow_upscale))
+
+    def load_batch_eval(self, paths: list[str], stage: int, out=None):
+        """NativePipeline.load_batch_eval on the card."""
+        from tpu_yolo_torch.ops.image_cuda import EVAL
+
+        return self._staged(paths, stage, EVAL, fb_eval(stage), out)
+
+    def load_batch_raw(self, paths: list[str], stage: int, out=None):
+        """NativePipeline.load_batch_raw on the card."""
+        from tpu_yolo_torch.ops.image_cuda import RAW
+
+        return self._staged(paths, stage, RAW, fb_raw(stage), out)
+
+    def load_batch_scaled(self, paths: list[str], stage: int, interps=None,
+                          out=None, bgr: bool = False):
+        """NativePipeline.load_batch_scaled on the card (per-image interps,
+        BGR order with bgr=True)."""
+        from tpu_yolo_torch.ops.image_cuda import SCALED
+
+        return self._staged(paths, stage, SCALED, fb_scaled(stage, interps, bgr),
+                            out, interps, bgr)
+
+
+def staging_pipeline(input_size: int, threads: int = 8, device=None):
+    """The staging pipeline for `device`: CardPipeline on a CUDA device
+    (a build or launch failure raises); elsewhere NativePipeline where the
+    host data library loads, else Cv2Pipeline. Each offers load_batch_raw
+    and load_batch_scaled, and says which it is in `.stager`."""
+    if device is not None and str(device).startswith("cuda"):
+        return CardPipeline(input_size, threads=threads, device=device)
     if available():
         return NativePipeline(input_size, threads=threads)
     return Cv2Pipeline(threads)
 
 
 class NativeEvalLoader:
-    """Eval data loader over the native pipeline, a drop-in for
-    data/loader.py::DataLoader in eval/evaluator.py::evaluate: yields
+    """Eval data loader over the native or the card pipeline, a drop-in
+    for data/loader.py::DataLoader in eval/evaluator.py::evaluate: yields
     (images (B, S, S, 3) uint8 RGB, targets {"cls", "box", "idx"}) in
-    dataset order. The label geometry is the denorm_corners /
-    corners_to_norm math of the Python dataset's eval branch, from the
+    dataset order, the images a host array (NativePipeline) or a tensor
+    on the card (CardPipeline). The label geometry is the denorm_corners
+    / corners_to_norm math of the Python dataset's eval branch, from the
     returned dims; pixel values differ from cv2's only by the decoder
     and bilinear rounding (JPEG), and not at all through the cv2
-    fallback.
+    fallback. `stager` names the pipeline.
 
-    One batch is prefetched in a background thread, so host decode
-    overlaps the device forward (the evaluator double-buffers on top).
+    One batch is prefetched in a background thread, so decode overlaps
+    the device forward (the evaluator double-buffers on top).
     """
 
     def __init__(self, dataset, batch_size: int, threads: int = 8,
-                 prefetch: int = 2, shard=None):
+                 prefetch: int = 2, shard=None, pipeline=None):
         """`shard`: (index, count) to decode and yield only that contiguous
-        part of each batch (data/loader.py::shard_rows)."""
+        part of each batch (data/loader.py::shard_rows). `pipeline`: the
+        pipeline to decode with, a NativePipeline by default."""
         self.dataset = dataset          # DetectionDataset(augment=False)
         self.batch_size = batch_size
         self.shard = shard
         self.input_size = dataset.input_size
-        self.pipe = NativePipeline(self.input_size, threads=threads)
+        self.pipe = (pipeline if pipeline is not None
+                     else NativePipeline(self.input_size, threads=threads))
+        self.stager = self.pipe.stager
         self.prefetch = prefetch
 
     def __len__(self):

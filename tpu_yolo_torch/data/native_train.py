@@ -1,4 +1,4 @@
-"""Host-augment train loader with native C++ decode (counterpart of
+"""Host-augment train loader with native decode (counterpart of
 `tpu_yolo/data/native_train.py`; the same draws in the same order, so
 both loaders give the same batches from the same seed).
 
@@ -6,7 +6,9 @@ Per batch:
   * decode + long-side == S prescale (the load_image contract): ONE
     `load_batch_scaled(bgr=True)` call of data/native_loader.py over every
     source the batch needs (4 per mosaic sample, 8 per mixup, 1 per
-    plain), libjpeg and the resize in the GIL-free C++ pool, BGR out;
+    plain), BGR out: on a CUDA `device` by nvJPEG and the placement
+    kernels on the card, then copied down ("nvjpeg"); else libjpeg and
+    the resize in the GIL-free C++ pool ("native");
   * draws: data/device_augment.py's `draw_mosaic` / `draw_mixup_pair` /
     `draw_plain` and data/augment.py's `draw_photometric`;
   * label math: device_augment's `assemble_mosaic` / `assemble_mixup` /
@@ -24,8 +26,9 @@ Batches are heterogeneous: each sample draws its mode with the host
 __getitem__ Bernoulli flow. Yields (images (B, S, S, 3) uint8 RGB,
 targets {"cls", "box", "idx"}), the collate() contract, so it takes
 data/loader.py::DataLoader's place in train/trainer.py (--native-train).
-It needs the native library (native_loader.available()) and raises
-without it: with cv2 decoding it would be the Python loader again.
+Off the card it needs the host data library (native_loader.available())
+and raises without it: with cv2 decoding it would be the Python loader
+again. `stager` names the decode.
 """
 from __future__ import annotations
 
@@ -103,25 +106,27 @@ def finish_sample(img_bgr, draw, photo: dict):
 
 
 class NativeTrainLoader:
-    """Train loader: native C++ decode and prescale, host cv2 augment.
+    """Train loader: native decode and prescale (on the card with a CUDA
+    `device`, else in the C++ pool), host cv2 augment.
 
     The constructor mirrors DeviceAugmentLoader's (filenames, input_size,
     hyp, per-process batch_size, cache_path, threads, seed,
-    num_shards/shard). `mosaic` is the trainer's final-10-epochs cutoff;
-    `photometric` turns on the p=0.01 photometric extras of the Python
-    dataset; `prefetch` batches are made ahead in a thread."""
+    num_shards/shard, device). `mosaic` is the trainer's final-10-epochs
+    cutoff; `photometric` turns on the p=0.01 photometric extras of the
+    Python dataset; `prefetch` batches are made ahead in a thread."""
 
     def __init__(self, filenames, input_size: int, hyp: dict,
                  batch_size: int, cache_path: str | None = None,
                  threads: int = 8, seed: int = 0,
                  num_shards: int = 1, shard: int = 0,
                  prefetch: int = 2, photometric: bool = True,
-                 interp: str = "random"):
+                 interp: str = "random", device=None):
         from tpu_yolo_torch.data import native_loader
 
-        if not native_loader.available():
-            raise RuntimeError("--native-train needs the native loader "
-                               "(make -C native)")
+        card = device is not None and str(device).startswith("cuda")
+        if not card and not native_loader.available():
+            raise RuntimeError(f"--native-train needs the host data library off "
+                               f"the card: {native_loader.why_unavailable()}")
         if interp not in ("random", "bilinear"):
             raise ValueError(f"interp must be random|bilinear: {interp!r}")
         self.general = bool(hyp.get("degrees", 0.0) or hyp.get("shear", 0.0))
@@ -139,7 +144,10 @@ class NativeTrainLoader:
         self.interp = interp
         self.mosaic = hyp.get("mosaic", 1.0) > 0
         self._epoch = 0
-        self._pipe = native_loader.NativePipeline(input_size, threads=threads)
+        self._pipe = (native_loader.CardPipeline(input_size, threads=threads,
+                                                 device=device) if card
+                      else native_loader.NativePipeline(input_size, threads=threads))
+        self.stager = self._pipe.stager
 
     def __len__(self):
         return (len(self.filenames) // self.num_shards) // self.batch_size
@@ -173,13 +181,15 @@ class NativeTrainLoader:
                    if self.interp == "random" else None)
         staged, dims, _ = self._pipe.load_batch_scaled(
             [self.filenames[i] for i in flat_idx], st, interps=interps, bgr=True)
+        if self.stager == "nvjpeg":   # the cv2 augment runs on the host
+            staged = staged.cpu().numpy()
 
         images, cls_all, box_all, idx_all = [], [], [], []
         for k, (mode, draw, srcs, photo) in enumerate(plans):
             lo = offs[k]
             d_k = dims[lo:lo + len(srcs)]
             s_k = staged[lo:lo + len(srcs)]
-            # a slot neither libjpeg nor cv2 could read has dims[0] < 0
+            # a slot neither the decoder nor cv2 could read has dims[0] < 0
             dims_of = {}
             failed_q = [frozenset(), frozenset()]
             for j, src in enumerate(srcs):

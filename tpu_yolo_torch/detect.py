@@ -5,8 +5,11 @@ counterpart of `tools/detect.py`), over `serve.Detector` and utils/viz.
     python -m tpu_yolo_torch.detect --weights yolo11n.pt --size n \
         --out ./detections img1.jpg img2.jpg ...
 
-Runs on the card unless `--device cpu` is given. `--int8` quantizes the
-model to int8 W8A8 first, calibrated on the first `--batch-size` images.
+Runs on the card unless `--device cpu` is given; there the files are
+decoded by nvJPEG and letterboxed (or, with `--device-letterbox`,
+staged) on the card, on the CPU by the native C++ pool or cv2 (the line
+`stager: nvjpeg|native|cv2` names it). `--int8` quantizes the model to
+int8 W8A8 first, calibrated on the first `--batch-size` images.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="quantize (calibrates on the first --batch-size images)")
     p.add_argument("--device-letterbox", action="store_true",
-                   help="host only decodes; resize+pad runs on the device "
+                   help="decode only into a raw staging buffer (nvJPEG on "
+                        "a card); resize+pad runs on the device "
                         "(ops/letterbox.py)")
     p.add_argument("--latency-mode", action="store_true",
                    help="the low-latency preset (single-label ranking, "

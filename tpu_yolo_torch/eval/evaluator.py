@@ -114,8 +114,9 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
       model: a YOLO (folded or not); evaluate takes it over, as Detector
         does: it folds its BatchNorm and moves it to `device` and
         `compute_dtype` in place.
-      loader: yields (images uint8 (B,H,W,3) numpy, targets dict)
-        batches; a smaller final batch is padded to the first one's size.
+      loader: yields (images uint8 (B,H,W,3), targets dict) batches, the
+        images numpy or, from a card loader, a tensor on the card; a
+        smaller final batch is padded to the first one's size.
       progress: show a tqdm bar named "eval" over the loader's batches
         (on stderr) and print the candidate-envelope line even when no
         image is at risk.
@@ -225,14 +226,17 @@ def evaluate(model, loader, input_size: int, plot_dir: str | None = None,
 
         batches = tqdm.tqdm(loader, total=len(loader), desc="eval")
     for i, (images, targets) in enumerate(batches):
+        # a card loader's images are on the device already: its buffers are
+        on_card = isinstance(images, torch.Tensor) and images.device.type == "cuda"
         if staging is None:
             shape = (rows or images.shape[0], *images.shape[1:])
             staging = [torch.empty(shape, dtype=torch.uint8,
-                                   pin_memory=device.type == "cuda")
+                                   device=images.device if on_card else "cpu",
+                                   pin_memory=device.type == "cuda" and not on_card)
                        for _ in range(2)]
         n = images.shape[0]
         host = staging[i % 2]
-        host[:n].copy_(torch.from_numpy(images))
+        host[:n].copy_(torch.as_tensor(images))
         host[n:] = 0  # pad the final batch: one shape throughout
         parts = (dp.shard_batch(host) if dp is not None
                  else [host.to(device, non_blocking=True)])

@@ -79,7 +79,8 @@ def main(images: int = 256, batch: int = 32, native: str = "auto"):
                                    cache_path=os.path.join(root, "val2017.cache.npy"))
 
         def loader(threads=8):
-            return make_val_loader(dataset, batch, num_workers=threads, native=native)
+            return make_val_loader(dataset, batch, num_workers=threads, native=native,
+                                   device=dev)
 
         files = dataset.filenames[:32]
         t0 = time.perf_counter()
@@ -95,7 +96,7 @@ def main(images: int = 256, batch: int = 32, native: str = "auto"):
             for imgs, _ in alone:
                 first = imgs if first is None else first
             loader_s[threads] = time.perf_counter() - t0
-        loader_kind = "native" if isinstance(alone, NativeEvalLoader) else "python"
+        loader_kind = alone.stager if isinstance(alone, NativeEvalLoader) else "python"
 
         model = YOLO.from_state_dict(cfg, state)
         clock = {}

@@ -1,18 +1,21 @@
 """Serving pipeline: uint8 images or paths -> detections (counterpart of
 `tpu_yolo/serve.py`).
 
-  host:    decode + letterbox (paths only) in the native C++ pool
-           (data/native_loader.py) or, where it cannot be built, with
-           OpenCV in a thread pool; with device_letterbox=True, decode
-           only: raw pixels top-left in a (stage_size, stage_size)
-           buffer, through the same pool or cv2. `stager` names it;
+  decode:  paths are decoded and letterboxed on the card by nvJPEG and
+           the placement kernels (data/native_loader.py::CardPipeline),
+           into the batch on the device; on the CPU in the native C++
+           pool or, where it cannot be built, with OpenCV in a thread
+           pool. With device_letterbox=True, decode only: raw pixels
+           top-left in a (stage_size, stage_size) buffer, through the
+           same pipelines. `stager` names it ("nvjpeg", "native", "cv2");
   device:  [letterbox (ops/letterbox.py)] -> /255 in the compute dtype ->
            YOLO.forward_raw -> nms_from_raw, on the card unless the caller
            passes device="cpu";
-  overlap: `stream` double-buffers: batch i+1 is staged in pinned host
-           memory and copied with non_blocking=True while batch i runs,
-           and each result comes back through its own pinned buffer and
-           CUDA event, so the host waits only on the result it emits;
+  overlap: `stream` double-buffers: batch i+1 is decoded (on the card,
+           into one of two device buffers; on the CPU, into pinned host
+           memory) while batch i runs, and each result comes back through
+           its own pinned buffer and CUDA event, so the host waits only on
+           the result it emits;
   dp:      with `dp` (parallel/mesh.py) a replica per device of the data
            axis: each batch is split into contiguous equal parts, one per
            device, and the results are gathered in order.
@@ -103,7 +106,7 @@ class Detector:
         resize + pad runs on the device (ops/letterbox.py); originals
         longer than stage_size are pre-shrunk on the host to fit, and that
         ratio is folded into the returned boxes per axis. `stager` then
-        says which decoder staged them ("native" or "cv2").
+        says which decoder staged them ("nvjpeg", "native" or "cv2").
         `decode_threads`: host threads that decode (and stage) images.
         `device`: "cuda" (the default) or "cpu"; raises without a card
         unless the CPU is asked for.
@@ -172,9 +175,9 @@ class Detector:
         if self._fixed_batch is not None:
             raise ValueError("this Detector runs a saved program: quantize the "
                              "Detector it was saved from, then save_compiled")
-        s = self.input_size
-        imgs = np.zeros((len(calib_paths), s, s, 3), np.uint8)
+        imgs = self._decode_buffer(len(calib_paths))
         metas = self._decode_batch(list(calib_paths), imgs)
+        imgs = np.asarray(imgs.cpu() if isinstance(imgs, torch.Tensor) else imgs)
         imgs = imgs[metas[:, 0] > 0]
         if not len(imgs):
             raise ValueError("Detector.quantize: no calibration image decoded")
@@ -194,38 +197,52 @@ class Detector:
         return cls(YOLO.from_state_dict(cfg, load_params(path, cfg)), **kw)
 
     # -- host decode ------------------------------------------------------
-    def _decode_batch(self, paths: list[str], out: np.ndarray):
+    def _decode_buffer(self, n: int):
+        """A zeroed (n, S, S, 3) uint8 batch for _decode_batch: a tensor on
+        the card, else a host array."""
+        s = self.input_size
+        if self.device.type == "cuda":
+            return torch.zeros((n, s, s, 3), dtype=torch.uint8, device=self.device)
+        return np.zeros((n, s, s, 3), np.uint8)
+
+    def _decode_batch(self, paths: list[str], out):
         """Decode + letterbox `paths` into the first rows of `out` (N, S,
-        S, 3) uint8 RGB, through the native pool where it loads (the
-        ratio unclamped: load_image's long-side scale then the letterbox,
-        in one resize), else cv2's load_image + letterbox, as the JAX
-        package's Detector does. Returns (N, 5) metas [ratio, pad_w,
-        pad_h, orig_w, orig_h], -1 for an image that failed to decode."""
+        S, 3) uint8 RGB, a host array or, on the card, a device tensor:
+        on the card by nvJPEG and the placement kernels, on the CPU
+        through the native pool where it loads (the ratio unclamped:
+        load_image's long-side scale then the letterbox, in one resize),
+        else cv2's load_image + letterbox, as the JAX package's Detector
+        does. Returns (N, 5) metas [ratio, pad_w, pad_h, orig_w, orig_h],
+        -1 for an image that failed to decode."""
         if self._host_pipe is None:
-            self._host_pipe = (native_loader.NativePipeline(
-                self.input_size, threads=self.decode_threads, allow_upscale=True)
+            self._host_pipe = (
+                native_loader.CardPipeline(self.input_size, threads=self.decode_threads,
+                                           allow_upscale=True, device=self.device)
+                if self.device.type == "cuda" else
+                native_loader.NativePipeline(self.input_size, threads=self.decode_threads,
+                                             allow_upscale=True)
                 if native_loader.available()
                 else _Cv2Letterbox(self.input_size, self.decode_threads))
         return self._host_pipe.load_batch(paths, out=out[:len(paths)])[1]
 
     @property
     def stager(self) -> str | None:
-        """The decoder of image paths, "native" or "cv2": the staged
-        path's with device_letterbox, else the host letterbox's (None
-        before its first batch)."""
+        """The decoder of image paths, "nvjpeg", "native" or "cv2": the
+        staged path's with device_letterbox, else the host letterbox's
+        (None before its first batch)."""
         pipe = self._stager if self.device_letterbox else self._host_pipe
         return pipe.stager if pipe is not None else None
 
-    def _decode_batch_raw(self, paths: list[str], out: np.ndarray):
+    def _decode_batch_raw(self, paths: list[str], out):
         """Raw decode of `paths` into the staging buffer `out` (N, St, St,
-        3) uint8 RGB, for the device letterbox. Returns (N, 4) dims
-        [staged_h, staged_w, orig_h, orig_w], -1 in column 0 for an image
-        that failed to decode."""
+        3) uint8 RGB (a host array, or a device tensor on the card), for
+        the device letterbox. Returns (N, 4) dims [staged_h, staged_w,
+        orig_h, orig_w], -1 in column 0 for an image that failed to
+        decode."""
         if self._stager is None:
             self._stager = native_loader.staging_pipeline(
-                self.input_size, threads=self.decode_threads)
-        _, dims, _ = self._stager.load_batch_raw(paths, self.stage_size, out=out)
-        return dims
+                self.input_size, threads=self.decode_threads, device=self.device)
+        return self._stager.load_batch_raw(paths, self.stage_size, out=out)[1]
 
     @staticmethod
     def _metas_from_dims(dims: np.ndarray, out_size: int) -> np.ndarray:
@@ -436,11 +453,12 @@ class Detector:
         RGB array; returns {path, boxes (N,4) xyxy (original pixels when
         `rescale`), scores, classes}."""
         s = self.input_size
-        imgs = np.zeros((self._fixed_batch or 1, s, s, 3), np.uint8)
         if isinstance(image, (str, os.PathLike)):
             path = os.fspath(image)
+            imgs = self._decode_buffer(self._fixed_batch or 1)
             metas = self._decode_batch([path], imgs)
         else:
+            imgs = np.zeros((self._fixed_batch or 1, s, s, 3), np.uint8)
             img = np.asarray(image)
             if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
                 raise ValueError(f"detect_one expects (H, W, 3) uint8 RGB, "
@@ -481,8 +499,10 @@ class Detector:
         staged = self.device_letterbox
         s = self.stage_size if staged else self.input_size
         pin = self.device.type == "cuda"
+        # on the card the images are decoded into device buffers
         staging = [torch.zeros((batch_size, s, s, 3), dtype=torch.uint8,
-                               pin_memory=pin) for _ in range(2)]
+                               device=self.device if pin else "cpu")
+                   for _ in range(2)]
         sizes = [torch.ones((batch_size, 2), dtype=torch.float32, pin_memory=pin)
                  for _ in range(2)]
         pending = None  # (fetched result, metas, batch paths)
@@ -490,18 +510,21 @@ class Detector:
             chunk = paths[start:start + batch_size]
             # staging[n % 2] and sizes[n % 2] are free: batch n-2's
             # result, emitted last round, came after their copies in
-            # stream order
+            # stream order (and on the card the decode streams wait for
+            # the batches enqueued before)
             host = staging[n % 2]
             host[len(chunk):] = 0
+            # the pipelines fill a device tensor on the card, else an array
+            batch = host[:len(chunk)] if pin else host[:len(chunk)].numpy()
             if staged:
-                dims = self._decode_batch_raw(chunk, host[:len(chunk)].numpy())
+                dims = self._decode_batch_raw(chunk, batch)
                 metas = self._metas_from_dims(dims, self.input_size)
                 hw = sizes[n % 2]
                 hw[:len(chunk)] = torch.from_numpy(np.maximum(dims[:, :2], 1.0))
                 hw[len(chunk):] = 1.0
                 res = self._predict_staged(host, hw)
             else:
-                metas = self._decode_batch(chunk, host.numpy())
+                metas = self._decode_batch(chunk, batch)
                 res = self._predict(host)
             res = self._fetch(res)
             if pending is not None:

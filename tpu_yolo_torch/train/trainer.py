@@ -246,10 +246,12 @@ def train(args, hyp: dict, cfg: ModelConfig, device="cuda", dp=None):
         dev_loader = DeviceAugmentLoader(
             filenames, args.input_size, hyp, batch, cache_path=cache_path,
             threads=args.workers, seed=getattr(args, "seed", 0),
-            pin_memory=device.type == "cuda", num_shards=world, shard=rank)
+            pin_memory=device.type == "cuda", num_shards=world, shard=rank,
+            device=device)
         print(f"[train] device augment: stager {dev_loader.stager}", flush=True)
     loader, kind = _native_train_loader(args, hyp, filenames, cache_path, batch,
-                                        dev_loader is not None, loader, world, rank)
+                                        dev_loader is not None, loader, world, rank,
+                                        device)
     print(f"[train] loader: {kind}", flush=True)
     active = loader if dev_loader is None else dev_loader
     fixed_bucket = int(getattr(args, "gt_bucket", 0) or 0)
@@ -449,12 +451,15 @@ def _end_epoch(args, hyp, cfg, state, device, epoch, best, meters, logger,
 
 def _native_train_loader(args, hyp, filenames, cache_path, batch,
                          device_augment: bool, host_loader, world: int = 1,
-                         rank: int = 0):
+                         rank: int = 0, device=None):
     """(loader, what the `[train] loader:` line says) for --native-train
-    auto|on|off: the native loader (data/native_train.py) where it is
-    asked for and the library loads; for auto without it the host loader
-    and why; for on without it an error. --device-augment stages its own
-    sources and takes neither."""
+    auto|on|off: the native train loader (data/native_train.py) where it
+    is asked for, its sources decoded and prescaled on the card on a CUDA
+    `device` ("nvjpeg": a failure to build or launch raises), else by the
+    host data library where it loads ("native"); on the CPU, auto without
+    the library takes the host loader and says why, and on raises. off
+    keeps the host loader. --device-augment stages its own sources and
+    takes neither."""
     mode = getattr(args, "native_train", "off")
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"--native-train must be auto|on|off, got {mode!r}")
@@ -466,20 +471,21 @@ def _native_train_loader(args, hyp, filenames, cache_path, batch,
     if mode == "off":
         return host_loader, "host"
     from tpu_yolo_torch.data import native_loader
-
-    if not native_loader.available():
-        if mode == "on":
-            raise RuntimeError("--native-train on requires "
-                               "native/libtpuyolo_data.so; run `make -C native`"
-                               f" ({native_loader.why_unavailable()})")
-        return host_loader, (f"host (--native-train auto: "
-                             f"{native_loader.why_unavailable()})")
     from tpu_yolo_torch.data.native_train import NativeTrainLoader
 
-    return NativeTrainLoader(filenames, args.input_size, hyp, batch,
-                             cache_path=cache_path, threads=args.workers,
-                             seed=getattr(args, "seed", 0), num_shards=world,
-                             shard=rank), "native"
+    card = device is not None and torch.device(device).type == "cuda"
+    if not card and not native_loader.available():
+        if mode == "on":
+            raise RuntimeError("--native-train on requires the host data "
+                               "library (tpu_yolo_torch/csrc/image_pipeline.cc):"
+                               f" {native_loader.why_unavailable()}")
+        return host_loader, (f"host (--native-train auto: "
+                             f"{native_loader.why_unavailable()})")
+    loader = NativeTrainLoader(filenames, args.input_size, hyp, batch,
+                               cache_path=cache_path, threads=args.workers,
+                               seed=getattr(args, "seed", 0), num_shards=world,
+                               shard=rank, device=device if card else None)
+    return loader, loader.stager
 
 
 def _run_eval(args, hyp, cfg, state, device):
@@ -494,7 +500,8 @@ def _run_eval(args, hyp, cfg, state, device):
         cache_path=os.path.join(args.data_dir, "val2017.cache.npy"))
     loader = make_val_loader(dataset, args.val_batch_size,
                              num_workers=args.workers,
-                             native=getattr(args, "native_eval", "auto"))
+                             native=getattr(args, "native_eval", "auto"),
+                             device=device)
     return evaluate(YOLO.from_state_dict(cfg, state.ema), loader,
                     args.input_size, progress=True,
                     max_nms=getattr(args, "max_nms", 2048), device=device)
