@@ -1,5 +1,6 @@
-"""Rules of the port that its code must keep: no JAX and no tpu_yolo in
-tpu_yolo_torch or chip_smoke.py, no path into the JAX package's
+"""Rules of the port that its code must keep: no JAX, no tpu_yolo and
+none of the JAX package's tools/ in tpu_yolo_torch (its parity harness
+and roofline included) or chip_smoke.py, no path into the JAX package's
 directories (native/, tpu_yolo/) and no `make -C native` there either,
 and chip_smoke.py refuses to run without a CUDA card or without the
 package beside it."""
@@ -16,6 +17,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tpu_yolo_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def test_the_port_has_its_own_tools():
+    """The counterparts of tools/parity_check.py and tools/roofline.py are
+    modules of the package, so the scans below cover them."""
+    for name in ("parity_check.py", "roofline.py"):
+        assert ROOT / "tpu_yolo_torch" / name in PORT_FILES
+
+
 def _imported_roots(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
@@ -26,7 +34,7 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
-    banned = {"jax", "jaxlib", "tpu_yolo"} & set(_imported_roots(path))
+    banned = {"jax", "jaxlib", "tpu_yolo", "tools"} & set(_imported_roots(path))
     assert not banned, f"{path.relative_to(ROOT)} imports {sorted(banned)}"
 
 
