@@ -22,6 +22,7 @@ from tpu_yolo_torch.ops.blocks import CSP, PSA, SPPF
 from tpu_yolo_torch.ops.boxes import dfl_decode
 from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, upsample2x
 from tpu_yolo_torch.parallel import spatial
+from tpu_yolo_torch.utils import telemetry
 
 # ---------------------------------------------------------------------------
 # Initialization: a numpy copy of the JAX package's init_params. The same
@@ -436,8 +437,9 @@ class YOLO(nn.Module):
         (ops/nms.py::nms_from_raw)."""
         from tpu_yolo_torch.ops.nms import nms_from_raw
 
-        return nms_from_raw(self.forward_raw(x), self.cfg, self._image_hw(x),
-                            **nms_kwargs)
+        with telemetry.span("layer.serve.forward"):
+            raw = self.forward_raw(x)
+        return nms_from_raw(raw, self.cfg, self._image_hw(x), **nms_kwargs)
 
     @torch.no_grad()
     def fold_batchnorm(self) -> "YOLO":

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
@@ -44,7 +45,8 @@ def _compile(compiler: str, src: str, stem: str, flags: tuple[str, ...],
     """`compiler flags -o build/lib<stem>-<hash>.so src libs` unless that
     library exists; the hash covers the source, the flags and the libs.
     Returns (library path, the compiler's stderr; empty when nothing was
-    built)."""
+    built). A build is recorded as set-up (utils/telemetry.py:
+    `setup.kernels_built`, `setup.build_s.<stem>`)."""
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags + libs).encode())
     out = os.path.join(BUILD, f"lib{stem}-{digest.hexdigest()[:16]}.so")
@@ -52,12 +54,17 @@ def _compile(compiler: str, src: str, stem: str, flags: tuple[str, ...],
         return out, ""
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
     proc = subprocess.run([compiler, *flags, "-o", tmp, src, *libs],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
+    from tpu_yolo_torch.utils import telemetry
+
+    telemetry.note("setup.kernels_built", 1, accumulate=True)
+    telemetry.note(f"setup.build_s.{stem}", time.perf_counter() - t0)
     return out, proc.stderr
 
 

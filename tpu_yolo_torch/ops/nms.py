@@ -30,6 +30,7 @@ import torch
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.ops.boxes import dfl_decode, xywh_to_xyxy
 from tpu_yolo_torch.ops.nms_cuda import MAX_K, greedy_keep
+from tpu_yolo_torch.utils import telemetry
 
 
 def _top_k(x, k: int):
@@ -132,40 +133,44 @@ def nms_from_raw(raw_maps, cfg, input_hw, conf_thres: float = 0.001,
       * boxes are DFL-decoded per level for all anchors, then gathered
         per candidate."""
     _check_ranking(ranking)
-    b = raw_maps[0].shape[0]
-    nc = cfg.num_classes
-    reg4 = 4 * cfg.reg_max
-    a = sum(m.shape[1] * m.shape[2] for m in raw_maps)
-    k = _budget(max_nms, a, nc, multi_label)
-    # (B, A, nc) class logits, anchor-major, levels in order
-    logits = torch.cat([m[..., reg4:].reshape(b, -1, nc) for m in raw_maps], 1)
-    top_logits, anchor_idx, cls_idx = _rank(logits, k, multi_label)
-    top_scores = torch.sigmoid(top_logits.float())
+    with telemetry.span("layer.serve.nms"):
+        b = raw_maps[0].shape[0]
+        nc = cfg.num_classes
+        reg4 = 4 * cfg.reg_max
+        a = sum(m.shape[1] * m.shape[2] for m in raw_maps)
+        k = _budget(max_nms, a, nc, multi_label)
+        with telemetry.span("layer.serve.nms.rank"):
+            # (B, A, nc) class logits, anchor-major, levels in order
+            logits = torch.cat([m[..., reg4:].reshape(b, -1, nc) for m in raw_maps], 1)
+            top_logits, anchor_idx, cls_idx = _rank(logits, k, multi_label)
+            top_scores = torch.sigmoid(top_logits.float())
 
-    anchors, stride_t = device_anchors(tuple(input_hw), tuple(cfg.strides),
-                                       logits.device)
-    boxes, off = [], 0
-    for m in raw_maps:
-        al = m.shape[1] * m.shape[2]
-        d = m[..., :reg4].reshape(b, al, reg4)
-        boxes.append(dfl_decode(d, anchors[off:off + al], cfg.reg_max,
-                                xywh=False) * stride_t[off:off + al])
-        off += al
-    boxes = torch.cat(boxes, 1)                              # (B, A, 4) f32
-    cand = torch.gather(boxes, 1, anchor_idx[..., None].expand(b, k, 4))
+        with telemetry.span("layer.serve.nms.decode"):
+            anchors, stride_t = device_anchors(tuple(input_hw), tuple(cfg.strides),
+                                               logits.device)
+            boxes, off = [], 0
+            for m in raw_maps:
+                al = m.shape[1] * m.shape[2]
+                d = m[..., :reg4].reshape(b, al, reg4)
+                boxes.append(dfl_decode(d, anchors[off:off + al], cfg.reg_max,
+                                        xywh=False) * stride_t[off:off + al])
+                off += al
+            boxes = torch.cat(boxes, 1)                              # (B, A, 4) f32
+            cand = torch.gather(boxes, 1, anchor_idx[..., None].expand(b, k, 4))
 
-    res = _suppress(cand, top_scores, cls_idx, conf_thres=conf_thres,
-                    iou_thres=iou_thres, max_det=max_det)
-    if envelope:
-        # above-conf population, counted on the logits against the
-        # sigmoid preimage log(c/(1-c))
-        c = min(max(conf_thres, 1e-12), 1.0 - 1e-12)
-        thr = torch.tensor(math.log(c / (1.0 - c)), dtype=torch.float32,
-                           device=logits.device)
-        pop = logits if multi_label else logits.amax(-1)
-        res["n_above_conf"] = (pop.float() > thr).reshape(b, -1).sum(-1).int()
-        res["candidate_budget"] = torch.tensor(k, dtype=torch.int32,
-                                               device=logits.device)
+        res = _suppress(cand, top_scores, cls_idx, conf_thres=conf_thres,
+                        iou_thres=iou_thres, max_det=max_det)
+        if envelope:
+            # above-conf population, counted on the logits against the
+            # sigmoid preimage log(c/(1-c)) (eval's certificate; in no
+            # sub-span, the serving path asks for none)
+            c = min(max(conf_thres, 1e-12), 1.0 - 1e-12)
+            thr = torch.tensor(math.log(c / (1.0 - c)), dtype=torch.float32,
+                               device=logits.device)
+            pop = logits if multi_label else logits.amax(-1)
+            res["n_above_conf"] = (pop.float() > thr).reshape(b, -1).sum(-1).int()
+            res["candidate_budget"] = torch.tensor(k, dtype=torch.int32,
+                                                   device=logits.device)
     return res
 
 
@@ -187,32 +192,42 @@ def nms_to_numpy(result, image_index: int) -> np.ndarray:
 def _suppress(cand_boxes, top_scores, cls_idx, *, conf_thres, iou_thres,
               max_det):
     """Greedy keep over score-descending xyxy candidates (B, K, 4), then
-    compaction of the kept rows to the front, in score order."""
-    # nan_to_num: a non-finite candidate (diverged weights, corrupt input)
-    # would otherwise poison the IoUs of its image
-    cand_boxes = torch.nan_to_num(cand_boxes.float(), nan=0.0, posinf=0.0,
-                                  neginf=0.0).contiguous()
-    top_scores = torch.nan_to_num(top_scores.float(), nan=0.0, posinf=0.0,
-                                  neginf=0.0)
-    valid = (top_scores > conf_thres).contiguous()
-    cls_idx = cls_idx.to(torch.int32).contiguous()
-    keep = greedy_keep(cand_boxes, cls_idx, valid, iou_thres)
+    compaction of the kept rows to the front, in score order. While
+    tracing is on it counts the keep's slots and what filled them
+    (utils/telemetry.py: nms.images, .slots, .live, .budget_full, .kept,
+    .capped)."""
+    with telemetry.span("layer.serve.nms.keep"):
+        # nan_to_num: a non-finite candidate (diverged weights, corrupt input)
+        # would otherwise poison the IoUs of its image
+        cand_boxes = torch.nan_to_num(cand_boxes.float(), nan=0.0, posinf=0.0,
+                                      neginf=0.0).contiguous()
+        top_scores = torch.nan_to_num(top_scores.float(), nan=0.0, posinf=0.0,
+                                      neginf=0.0)
+        valid = (top_scores > conf_thres).contiguous()
+        cls_idx = cls_idx.to(torch.int32).contiguous()
+        keep = greedy_keep(cand_boxes, cls_idx, valid, iou_thres)
 
-    b = keep.shape[0]
-    cum = keep.cumsum(1)
-    # kept row n goes to slot n-1; every other row to a dump slot max_det
-    slot = torch.where(keep & (cum <= max_det), cum - 1, max_det)
-    payload = torch.cat([cand_boxes, top_scores[..., None],
-                         cls_idx.float()[..., None]], -1)      # (B, K, 6)
-    out = torch.zeros(b, max_det + 1, 6, device=payload.device)
-    out.scatter_(1, slot[..., None].expand(*slot.shape, 6), payload)
-    out = out[:, :max_det]
-    slots = torch.arange(1, max_det + 1, device=keep.device)
-    out_valid = slots[None, :] <= cum[:, -1:]
-    return {
-        "boxes": out[..., :4],
-        "scores": out[..., 4],
-        "classes": torch.where(out_valid, out[..., 5].int(), -1),
-        "valid": out_valid,
-        "count": out_valid.sum(1).int(),
-    }
+    with telemetry.span("layer.serve.nms.compact"):
+        b, k = keep.shape
+        cum = keep.cumsum(1)
+        # kept row n goes to slot n-1; every other row to a dump slot max_det
+        slot = torch.where(keep & (cum <= max_det), cum - 1, max_det)
+        payload = torch.cat([cand_boxes, top_scores[..., None],
+                             cls_idx.float()[..., None]], -1)      # (B, K, 6)
+        out = torch.zeros(b, max_det + 1, 6, device=payload.device)
+        out.scatter_(1, slot[..., None].expand(*slot.shape, 6), payload)
+        out = out[:, :max_det]
+        slots = torch.arange(1, max_det + 1, device=keep.device)
+        out_valid = slots[None, :] <= cum[:, -1:]
+        count = out_valid.sum(1).int()
+        res = {"boxes": out[..., :4], "scores": out[..., 4],
+               "classes": torch.where(out_valid, out[..., 5].int(), -1),
+               "valid": out_valid, "count": count}
+        if telemetry.on():
+            telemetry.add("nms.images", b)
+            telemetry.add("nms.slots", b * k)
+            # summed when read: slot max_det is filled iff count == max_det
+            telemetry.add(("nms.live", "nms.budget_full", "nms.kept", "nms.capped"),
+                          lambda: torch.stack([valid.sum(), valid[:, -1].sum(),
+                                               out_valid.sum(), out_valid[:, -1].sum()]))
+    return res

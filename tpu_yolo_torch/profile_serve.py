@@ -5,9 +5,11 @@
 Serves YOLOv11-n at 640 px, batch 128, with the Detector's defaults (bf16,
 multi-label, K=1024) and seeded weights (seeded.py), times 10 batches by
 the host clock, then traces 3 batches with torch.profiler. Prints one
-JSON object: img/s, the device's busy share of the traced wall time, and
+JSON object: img/s, the device's busy share of the traced wall time,
 device time per batch by kernel group, for the top kernels, and for each
-of the port's own kernels by name.
+of the port's own kernels by name; the device time per batch of each of
+the program's spans (`span_ms_per_batch`, utils/telemetry.py) and its
+counters over the traced batches (`telemetry`: `telemetry.snapshot()`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from tpu_yolo_torch.core.config import get_model_config
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.seeded import seeded_images, serving_state
 from tpu_yolo_torch.serve import Detector
+from tpu_yolo_torch.utils import telemetry
 
 GROUPS = (  # first match wins; matched against the lowercased kernel name
     ("psa_attention", r"attention_\w*kernel"),
@@ -83,6 +86,7 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
     img_s = batch * timed / (time.perf_counter() - t0)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    telemetry.reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(traced):
@@ -104,6 +108,9 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
         "own_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
                         for ms, n, name in kernels
                         if _group(name) in ("psa_attention", "nms_greedy_keep")],
+        "span_ms_per_batch": {k: s * 1e3 / traced
+                              for k, s in sorted(telemetry.device_seconds(prof).items())},
+        "telemetry": telemetry.snapshot(),
     }))
 
 
