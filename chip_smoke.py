@@ -168,7 +168,8 @@ INT8_F32_MATCH = 0.45
 EXPORT_BATCHES = (1, 8, 128)  # phase q: batches run through one symbolic export
 # phase q: the ops and the kernels a trace of serving batches must name
 TRACE_NAMES = ("tpu_yolo_torch::psa_attention", "tpu_yolo_torch::nms_greedy_keep",
-               "attention_bf16_kernel", "nms_keep_kernel")
+               "tpu_yolo_torch::bias_act", "attention_bf16_kernel", "nms_keep_kernel",
+               "bias_act_kernel")
 PIXEL_GATE = "uint8 equal on >= 99.9% of values, mean |diff| < 0.01"
 # phase t: data parallelism. t1's epoch losses against a plain trainer's
 # (cuDNN's backward is not bit-reproducible between runs); t2's two ranks
@@ -431,8 +432,9 @@ def main() -> int:
 
     from tpu_yolo_torch.core.config import get_model_config
     from tpu_yolo_torch.models.yolov11 import YOLO
-    from tpu_yolo_torch.ops import (attention_cuda, blocks, image_cuda, nms, nms_cuda,
-                                    topk_cuda)
+    from tpu_yolo_torch.ops import (attention_cuda, bias_act_cuda, blocks, image_cuda, nms,
+                                    nms_cuda, topk_cuda)
+    from tpu_yolo_torch.ops import nn as ops_nn
     from tpu_yolo_torch.seeded import nms_scene, seeded_images, serving_state
     from tpu_yolo_torch.serve import Detector
 
@@ -452,12 +454,12 @@ def main() -> int:
     check(np.lib.NumpyVersion(np.__version__) >= "2.0.0",
           f"numpy {np.__version__}: eval needs numpy >= 2.0 (np.trapezoid)")
 
-    # (b) build the four kernel sources, one nvcc each, in parallel
+    # (b) build the five kernel sources, one nvcc each, in parallel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         reports = list(pool.map(lambda build: build(),
                                 (attention_cuda.build, nms_cuda.build,
-                                 topk_cuda.build, image_cuda.build)))
+                                 topk_cuda.build, image_cuda.build, bias_act_cuda.build)))
     emit("build", seconds=round(time.perf_counter() - t0, 2),
          ptxas=[line.strip() for r in reports for line in r.splitlines()
                 if "registers" in line or "spill" in line])
@@ -547,8 +549,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # one serving batch with every count at 0, its kernel inputs captured
+    # (the epilogue pass's at its largest map, with and without a residual)
     captured = {}
-    attn_fn, keep_fn = blocks.fused_attention, nms.greedy_keep
+    attn_fn, keep_fn, epilogue_fn = blocks.fused_attention, nms.greedy_keep, ops_nn.bias_act
 
     def attn_tap(q, k, v, scale):
         captured.setdefault("attention", (q, k, v, scale))
@@ -558,16 +561,26 @@ def main() -> int:
         captured.setdefault("nms", (boxes, cls, valid, thr))
         return keep_fn(boxes, cls, valid, thr)
 
+    def epilogue_tap(y, b, act, residual=None, halves=False):
+        key = "bias_act" if residual is None else "bias_act_residual"
+        if key not in captured or y.numel() > captured[key][0].numel():
+            captured[key] = (y, b, act, residual, halves)
+        return epilogue_fn(y, b, act, residual, halves)
+
     blocks.fused_attention, nms.greedy_keep = attn_tap, keep_tap
+    ops_nn.bias_act = epilogue_tap
     attention_cuda.fused_attention.launches = 0
     nms_cuda.greedy_keep.launches = 0
+    bias_act_cuda.bias_act.launches = 0
     try:
         res = det.detect_batch(imgs)
         torch.cuda.synchronize()
     finally:
         blocks.fused_attention, nms.greedy_keep = attn_fn, keep_fn
+        ops_nn.bias_act = epilogue_fn
     launches = {"attention": attention_cuda.fused_attention.launches,
-                "nms": nms_cuda.greedy_keep.launches}
+                "nms": nms_cuda.greedy_keep.launches,
+                "bias_act": bias_act_cuda.bias_act.launches}
     check(min(launches.values()) > 0, f"a kernel did not run: {launches}")
 
     counts = res["count"].cpu()
@@ -1486,22 +1499,23 @@ def _int8_f32_layers(card_model, cpu_model, x):
         io, xq = {}, {}
 
         def pre(name):
-            def hook(m, args):
+            def hook(m, args, kwargs):
                 xq[name] = m.quantize_input(args[0]).cpu()
                 if keep_io:
-                    io[name] = [args[0].cpu()]
+                    io[name] = [args[0].cpu(), {k: v.cpu() if torch.is_tensor(v) else v
+                                                for k, v in kwargs.items()}]
             return hook
 
         def post(name):
             def hook(m, args, out):
                 if keep_io:
-                    io[name].append(out.cpu())
+                    io[name].append(_whole(out).cpu())
             return hook
 
         handles = []
         for name, m in model.named_modules():
             if isinstance(m, ConvBN):
-                handles += [m.register_forward_pre_hook(pre(name)),
+                handles += [m.register_forward_pre_hook(pre(name), with_kwargs=True),
                             m.register_forward_hook(post(name))]
         try:
             with torch.inference_mode():
@@ -1516,8 +1530,9 @@ def _int8_f32_layers(card_model, cpu_model, x):
     modules = dict(card_model.named_modules())
     worst = 0.0
     with torch.inference_mode():
-        for name, (inp, out) in io.items():
-            got = modules[name](inp.cuda()).cpu()
+        for name, (inp, kwargs, out) in io.items():
+            got = _whole(modules[name](inp.cuda(), **{
+                k: v.cuda() if torch.is_tensor(v) else v for k, v in kwargs.items()})).cpu()
             worst = max(worst, float((got - out).abs().max() / out.abs().max()))
     differ = {name: int((xq_card[name] != q).sum()) for name, q in xq_cpu.items()}
     return dict(convs=len(io), teacher_forced_max_rel_err=worst,
@@ -1525,6 +1540,13 @@ def _int8_f32_layers(card_model, cpu_model, x):
                 xq_differ=sum(differ.values()),
                 convs_differing=sum(1 for d in differ.values() if d),
                 first_conv_differing=next((n for n, d in differ.items() if d), None))
+
+
+def _whole(out):
+    """A conv's output, its two halves (`ConvBN(x, halves=True)`) joined."""
+    import torch
+
+    return torch.cat(out, 1) if isinstance(out, tuple) else out
 
 
 def _device_breakdown(fn, top: int = 8) -> dict:
@@ -1725,7 +1747,7 @@ def _analytic_flops(model, x):
 
     def conv_hook(m, args, out):
         w = m.w_q if m.quantized else m.w
-        flops.append(2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3])
+        flops.append(2 * _whole(out).numel() * w.shape[1] * w.shape[2] * w.shape[3])
 
     attn_fn = blocks.fused_attention
 
@@ -3226,10 +3248,10 @@ plain_forward, plain_partition = nn.ConvBN.forward, spatial.partition_spatial
 # channels; autograd sums the two halves' input gradients, as
 # copy_model's all-reduce does) without the process group
 def split_forward(min_channels):
-    def forward(self, x):
+    def forward(self, x, residual=None, halves=False):
         o = self.w.shape[0]
         if o < min_channels or o % 2:
-            return plain_forward(self, x)
+            return plain_forward(self, x, residual, halves)
         outs = []
         for keep in (slice(0, o // 2), slice(o // 2, o)):
             half = types.SimpleNamespace(
@@ -3241,7 +3263,7 @@ def split_forward(min_channels):
             for name in ("_conv", "_window", "_run", "_train_norm"):
                 setattr(half, name, types.MethodType(getattr(nn.ConvBN, name), half))
             outs.append(nn.ConvBN._forward(half, x[:, keep] if self.groups > 1 else x))
-        return torch.cat(outs, 1)
+        return nn._plus(residual, torch.cat(outs, 1), halves)
     return forward
 
 
@@ -3250,9 +3272,9 @@ def split_forward(min_channels):
 # blocks of 32 image rows, the first rank's share rounded up), each with
 # the rows its window reads beyond them (zeros past the map's edges),
 # side by side
-def rows_forward(self, x):
+def rows_forward(self, x, residual=None, halves=False):
     if not getattr(self, "in_halves", False):
-        return plain_forward(self, x)
+        return plain_forward(self, x, residual, halves)
     k, s = self.w.shape[2], self.stride
     (top, _), lr = nn._pads(self.padding)
     bottom = max(k - top - s, 0)
@@ -3263,8 +3285,9 @@ def rows_forward(self, x):
         training=self.training, quantized=False, spatial=None, folded=True, b=self.b)
     for name in ("_conv", "_window", "_run"):
         setattr(view, name, types.MethodType(getattr(nn.ConvBN, name), view))
-    return torch.cat([nn.ConvBN._forward(view, padded[:, :, lo:hi + top + bottom].contiguous(
-        memory_format=torch.channels_last)) for lo, hi in ((0, first), (first, x.shape[2]))], 2)
+    return nn._plus(residual, torch.cat([nn.ConvBN._forward(view, padded[
+        :, :, lo:hi + top + bottom].contiguous(memory_format=torch.channels_last))
+        for lo, hi in ((0, first), (first, x.shape[2]))], 2), halves)
 
 
 def mark_halves(model, mesh):   # in partition_spatial's place, on one rank
@@ -4325,8 +4348,56 @@ def _kernel_rows(captured, launches):
         plain_ms=cuda_ms(lambda: topk_cuda.topk_mask_plain(x, TOP_K), iters=5),
         bound_ms=bound, bound_by=bound_by,
         library_ms=cuda_ms(library, iters=5, graph=True)))
+    kernels += _bias_act_rows(captured, launches)
     kernels += _card_kernel_rows(captured, launches)
     return kernels
+
+
+def _bias_act_rows(captured, launches):
+    """The folded conv's epilogue pass at v11-n's serving inputs (phase e):
+    its largest map, and its largest with a residual. Bit-equal to the
+    plain version (checked); `ms` from launches replayed out of a CUDA
+    graph; the byte bound (y and the residual read, the output written
+    once); `library_ms` the PyTorch calls the pass replaces,
+    `F.silu(y.add_(b))` (+ the residual), as a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_yolo_torch.ops import bias_act_cuda as ba
+
+    rows = []
+    for key in ("bias_act", "bias_act_residual"):
+        y, b, act, r, halves = captured[key]
+        got = ba.bias_act(y, b, act, r, halves)
+        want = ba.bias_act_plain(y, b, act, r, halves)
+        got, want = (torch.cat(t, 1) if halves else t for t in (got, want))
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{key} kernel vs plain at the main path's inputs")
+        y2, bias = y.clone(), b.view(1, -1, 1, 1)
+        act_fn = F.silu if act == "silu" else (lambda t: t)
+
+        def library():
+            out = act_fn(y2.add_(bias))
+            return out if r is None else r + out
+
+        nbytes = (2 * y.numel() + (0 if r is None else r.numel())) * y.element_size()
+        ms = cuda_ms(lambda: ba.bias_act(y, b, act, r, halves), graph=True)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        rows.append(dict(
+            name=key, route="cuda", op="tpu_yolo_torch::bias_act",
+            source="tpu_yolo_torch/csrc/bias_act.cu",
+            replaces="no TPU kernel: XLA fuses a conv's bias, SiLU and residual",
+            shape=dict(y=list(y.shape), dtype=str(y.dtype), act=act, halves=halves,
+                       residual=None if r is None else dict(stride=list(r.stride())),
+                       form=ba.kernel_form(y, b, r, halves)),
+            launches=launches["bias_act"], max_abs_err=float((got.float() - want.float())
+                                                             .abs().max()),
+            ms=ms, ms_with_launch=cuda_ms(lambda: ba.bias_act(y, b, act, r, halves)),
+            plain_ms=cuda_ms(lambda: ba.bias_act_plain(y, b, act, r, halves), iters=5),
+            bound_ms=bound, bound_by="bytes", ms_over_bound=ms / bound,
+            library_ms=cuda_ms(library, graph=True),
+            library_call="F.silu(y.add_(b))" + ("" if r is None else " + r")))
+    return rows
 
 
 # the host C++ functions that the card's placement kernels compute: no

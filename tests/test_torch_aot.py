@@ -24,6 +24,7 @@ from tpu_yolo_torch.core.config import ModelConfig
 from tpu_yolo_torch.io.weights import from_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params
 from tpu_yolo_torch.ops.attention_cuda import psa_attention
+from tpu_yolo_torch.ops.bias_act_cuda import bias_act_op
 from tpu_yolo_torch.ops.nms_cuda import nms_greedy_keep
 from tpu_yolo_torch.ops.topk_cuda import topk_mask_op
 from tpu_yolo_torch.serve import Detector
@@ -254,11 +255,20 @@ def _op_cases():
     boxes = torch.cat([xy, xy + torch.rand(2, 64, 2, generator=g) * 30], -1)
     cls = torch.randint(0, 3, (2, 64), generator=g, dtype=torch.int32)
     valid = torch.rand(2, 64, generator=g) > 0.3
+    y = torch.randn(2, 16, 5, 7, generator=g).contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(16, generator=g)
+    # a residual as `chunk` gives it: the second half of a channels_last map
+    residual = torch.randn(2, 32, 5, 7, generator=g).contiguous(
+        memory_format=torch.channels_last).chunk(2, 1)[1]
     return {"psa_attention": (psa_attention, (q, k, v, 32 ** -0.5)),
             "psa_attention_bf16": (psa_attention, (q.bfloat16(), k.bfloat16(),
                                                    v.bfloat16(), 32 ** -0.5)),
             "nms_greedy_keep": (nms_greedy_keep, (boxes, cls, valid, 0.5)),
-            "topk_mask": (topk_mask_op, (torch.randn(2, 3, 40, generator=g), 5))}
+            "topk_mask": (topk_mask_op, (torch.randn(2, 3, 40, generator=g), 5)),
+            "bias_act": (bias_act_op, (y, bias, "silu", None, False)),
+            "bias_act_residual_bf16": (bias_act_op, (y.bfloat16(), bias.bfloat16(),
+                                                     "identity", residual.bfloat16(), False)),
+            "bias_act_halves": (bias_act_op, (y, bias, "silu", residual, True))}
 
 
 @pytest.mark.parametrize("name", list(_op_cases()))

@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_yolo_torch.core.config import ModelConfig
+from tpu_yolo_torch.core.config import ModelConfig, get_model_config
 from tpu_yolo_torch.io.weights import from_jax_params
 from tpu_yolo_torch.models.yolov11 import YOLO, init_params
+from tpu_yolo_torch.ops import attention_cuda, bias_act_cuda, nn
 from tpu_yolo_torch.ops.attention_cuda import (attention_plain, fused_attention,
                                                kernel_form)
+from tpu_yolo_torch.ops.bias_act_cuda import bias_act, bias_act_plain
 from tpu_yolo_torch.ops.nms_cuda import greedy_keep, greedy_keep_plain
 from tpu_yolo_torch.ops.topk_cuda import topk_mask, topk_mask_plain
 from tpu_yolo_torch.seeded import nms_scene
@@ -133,6 +135,113 @@ def test_topk_kernel_refuses_a_row_beyond_shared_memory(cuda):
         topk_mask(x, 10)
 
 
+# (y's shape, act, residual, the output as two halves, the kernel's form):
+# v11-x's serving maps at 640 px, batch 128, and the scalar form's causes
+BIAS_ACT_CASES = [
+    ((128, 96, 320, 320), "silu", None, False, "vector"),  # the stem: the largest map
+    ((128, 48, 160, 160), "silu", "contiguous", False, "vector"),  # the largest residual
+    ((128, 384, 20, 20), "identity", "chunk", False, "vector"),  # attention + x, a slice
+    ((128, 192, 160, 160), "silu", None, True, "vector"),  # p2's C3k2 conv1, in halves
+    ((128, 1, 80, 80), "identity", None, False, "scalar"),  # a head with one class
+    ((8, 80, 40, 40), "silu", "unaligned", False, "scalar"),  # a residual off alignment
+    ((8, 6, 40, 40), "silu", None, True, "scalar"),       # halves of 3 channels
+]
+
+
+@pytest.mark.parametrize("shape,act,residual,halves,form", BIAS_ACT_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bias_act_kernel_equals_plain(cuda, dtype, shape, act, residual, halves, form):
+    """The epilogue kernel against its plain version (PyTorch's own
+    passes on the card), bit for bit, in both forms; two halves are two
+    maps of their own."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, c, h, w = shape
+    cl = torch.channels_last
+
+    def randn(*size):
+        return torch.randn(size, device=cuda, generator=gen).to(dtype).contiguous(
+            memory_format=cl)
+
+    y, b = randn(n, c, h, w), torch.randn(c, device=cuda, generator=gen).to(dtype)
+    r = {None: None, "contiguous": lambda: randn(n, c, h, w),
+         "chunk": lambda: randn(n, 2 * c, h, w).chunk(2, 1)[1],
+         "unaligned": lambda: randn(n, c + 2, h, w)[:, 1:c + 1]}[residual]
+    r = r() if r else None
+    assert bias_act_cuda.kernel_form(y, b, r, halves) == form
+    before = bias_act.launches
+    got = bias_act(y, b, act, r, halves)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 1
+    want = bias_act_plain(y, b, act, r, halves)
+    got, want = (got, want) if halves else ((got,), (want,))
+    assert len(got) == len(want)
+    for g, w_ in zip(got, want):
+        assert g.is_contiguous(memory_format=cl) and torch.equal(g, w_)
+
+
+def test_bias_act_kernel_launches_nothing_on_an_empty_map(cuda):
+    y = torch.empty(2, 16, 0, 40, device=cuda, dtype=torch.bfloat16)
+    before = bias_act.launches
+    got = bias_act(y, torch.zeros(16, device=cuda, dtype=torch.bfloat16), "silu")
+    assert got.shape == y.shape and bias_act.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_folded_forward_through_the_kernel_equals_the_unfused(cuda, dtype, monkeypatch):
+    """v11-n's folded forward at 640 px on the card, every folded conv's
+    epilogue in the kernel (87 launches), equals bit for bit the forward
+    in which PyTorch adds the bias, applies the activation and adds each
+    residual in passes of its own."""
+    cfg = get_model_config("n")
+    model = YOLO.from_state_dict(cfg, from_jax_params(init_params(0, cfg), cfg))
+    model = model.fold_batchnorm().eval().to(device=cuda, dtype=dtype,
+                                              memory_format=torch.channels_last)
+    x = torch.rand((8, 640, 640, 3), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(1)).to(dtype)
+    before = bias_act.launches
+    with torch.inference_mode():
+        fused = model.forward_raw(x)
+    torch.cuda.synchronize()
+    assert bias_act.launches == before + 87
+    monkeypatch.setattr(nn, "epilogue_on_card", lambda x: False)
+    with torch.inference_mode():
+        unfused = model.forward_raw(x)
+    for a, b in zip(fused, unfused):
+        assert torch.equal(a, b)
+
+
+def test_attention_op_takes_strided_inputs(cuda):
+    """The op itself (as an exported program calls it, without the
+    wrapper's checks) on strided q, k, v: the plain version's result."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(1, 400, 2, 128, device=cuda, generator=gen).bfloat16()
+    q, k, v = (qkv[..., lo:hi].transpose(1, 2).reshape(2, 400, hi - lo)
+               for lo, hi in ((0, 32), (32, 64), (64, 128)))
+    assert not q.is_contiguous()
+    got = attention_cuda.psa_attention(q, k, v, 32 ** -0.5)
+    want = attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), 32 ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_symbolic_batch_export_equals_live_at_every_batch(cuda, tmp_path):
+    """v11-n's eval forward exported with a symbolic batch (utils/export.py)
+    equals the live forward bit for bit at batches 1, 2 and 3: at batch 1
+    a reshape the trace saw as a copy is a view."""
+    from tpu_yolo_torch.utils.export import export_program, load_program
+
+    cfg = get_model_config("n")
+    model = YOLO.from_state_dict(cfg, from_jax_params(init_params(0, cfg), cfg))
+    model = model.fold_batchnorm().to(cuda, memory_format=torch.channels_last)
+    export_program(model, cfg, 256, str(tmp_path))
+    run = load_program(str(tmp_path))
+    imgs = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (3, 256, 256, 3),
+                                                              np.uint8)).to(cuda)
+    for b in (1, 2, 3):
+        with torch.inference_mode():
+            want = model(imgs[:b].to(torch.bfloat16) / 255)
+        assert torch.equal(run(model, imgs[:b]), want), b
+
+
 def test_detector_runs_both_kernels(cuda):
     cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
                       csp=(False, True), num_classes=8)
@@ -173,10 +282,11 @@ def test_saved_program_runs_the_kernels(cuda, tmp_path, staged):
     else:
         args = (rng.integers(0, 256, (2, 128, 128, 3), np.uint8),)
         want = live.detect_batch(*args)
-    attn, keep = fused_attention.launches, greedy_keep.launches
+    attn, keep, epilogue = fused_attention.launches, greedy_keep.launches, bias_act.launches
     got = (loaded._predict_staged(*args) if staged else loaded.detect_batch(*args))
     torch.cuda.synchronize()
     assert fused_attention.launches == attn + 1 and greedy_keep.launches == keep + 1
+    assert bias_act.launches > epilogue
     for k in want:
         assert torch.equal(got[k], want[k]), k
 

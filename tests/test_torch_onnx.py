@@ -92,6 +92,32 @@ def test_roundtrip_tiny(tiny):
     np.testing.assert_allclose(got, tiny.want[:2], rtol=2e-4, atol=2e-4)
 
 
+def test_roundtrip_tiny_through_the_conv_epilogue_op(tiny, tmp_path, monkeypatch):
+    """A folded forward traced through `tpu_yolo_torch::bias_act` (the
+    card's path, routed here by the seam): every folded conv's epilogue
+    lowered to Add/Sigmoid/Mul/Add, and the file against the model's own
+    forward and JAX's at 2e-4."""
+    from tpu_yolo_torch.ops import nn as port_nn
+
+    monkeypatch.setattr(port_nn, "epilogue_on_card", lambda x: True)
+    target = torch.ops.tpu_yolo_torch.bias_act.default
+    lowered = []
+    handler = onnx_export._HANDLERS[target]
+    monkeypatch.setitem(onnx_export._HANDLERS, target,
+                        lambda c, n: (lowered.append(n), handler(c, n)))
+    path = str(tmp_path / "epilogue.onnx")
+    state = from_jax_params(tiny.params, TINY)
+    export_onnx(state, TINY, 64, path)
+    graph, _ = parse_model(open(path, "rb").read())
+    model = YOLO.from_state_dict(TINY, state).fold_batchnorm().eval()
+    assert len(lowered) == sum(isinstance(m, port_nn.ConvBN) for m in model.modules())
+    got = run_graph(graph, {"images": tiny.x[:2]})["output"]
+    with torch.no_grad():
+        own = model(torch.from_numpy(tiny.x[:2]).permute(0, 2, 3, 1)).numpy()
+    np.testing.assert_allclose(got, own, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, tiny.want[:2], rtol=2e-4, atol=2e-4)
+
+
 def test_roundtrip_v11n_96(v11n):
     """The full v11-n graph, PSA attention lowered to MatMul and the
     softmax's ReduceMax/Exp/ReduceSum/Div, batch 1, at 2e-4."""
@@ -259,13 +285,14 @@ def test_int8_model_is_refused():
 
 def test_supported_ops_contract():
     ops = onnx_export.supported_ops()
-    assert ops == sorted(ops) and len(ops) == len(set(ops)) == 25
+    assert ops == sorted(ops) and len(ops) == len(set(ops)) == 26
     for needed in ("aten.convolution.default", "aten.max_pool2d_with_indices.default",
                    "aten.upsample_nearest2d.vec", "aten.split_with_sizes.default",
                    "aten.view.default", "aten.permute.default", "aten.cat.default",
                    "aten.sigmoid.default", "aten.constant_pad_nd.default",
                    "aten.sym_size.int", "operator.mul", "operator.getitem",
-                   "tpu_yolo_torch.psa_attention.default"):
+                   "tpu_yolo_torch.psa_attention.default",
+                   "tpu_yolo_torch.bias_act.default"):
         assert needed in ops, needed
     emitted = {"Add", "Sub", "Mul", "Div", "Sigmoid", "Exp", "Conv", "MaxPool",
                "MatMul", "Transpose", "Reshape", "Expand", "Concat", "Slice",

@@ -5,11 +5,13 @@ The PyTorch/CUDA port of `tpu_yolo`, which stays the reference. It
 imports torch and numpy only, never JAX or `tpu_yolo`. Convolutions go
 through cuDNN; the three kernels that `tpu_yolo` wrote in Pallas for the
 TPU are CUDA C++ kernels for sm_90a here, built from `csrc/` with nvcc
-at their first launch:
+at their first launch, and a fourth takes the folded convs' bias,
+activation and residual in one pass (XLA fuses them on the TPU):
 
   ops/attention_cuda.py  csrc/attention.cu  PSA attention (inference)
   ops/nms_cuda.py        csrc/nms_keep.cu   NMS greedy keep
   ops/topk_cuda.py       csrc/topk_mask.cu  the assigner's top-k mask
+  ops/bias_act_cuda.py   csrc/bias_act.cu   a folded conv's epilogue
 
 Package layout:
   core/    model configs and hyperparameters

@@ -72,6 +72,10 @@ def psa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @psa_attention.register_kernel("cuda")
 def _psa_attention_cuda(q, k, v, scale):
+    # the kernel reads q, k, v as contiguous: an exported program hands
+    # the op what its graph gives, which at another batch than the one
+    # traced can be a strided view where the trace saw a copy
+    q, k, v = (x.contiguous() for x in (q, k, v))
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("fused_attention: inputs not 16-byte aligned")
     out = torch.empty_like(v)
@@ -88,7 +92,7 @@ def _psa_attention_cuda(q, k, v, scale):
 
 @psa_attention.register_fake
 def _psa_attention_fake(q, k, v, scale):
-    return torch.empty_like(v)
+    return torch.empty_like(v, memory_format=torch.contiguous_format)
 
 
 @register_flop_formula(torch.ops.tpu_yolo_torch.psa_attention)

@@ -23,7 +23,7 @@ class Residual(nn.Module):
         self.conv2 = ConvBN(mid, ch, 3, padding=1)
 
     def forward(self, x):
-        return x + self.conv2(self.conv1(x))
+        return self.conv2(self.conv1(x), residual=x)
 
 
 class CSPModule(nn.Module):
@@ -60,7 +60,7 @@ class CSP(nn.Module):
             for _ in range(n)])
 
     def forward(self, x, remat: bool = False):
-        parts = list(self.conv1(x).chunk(2, 1))
+        parts = list(self.conv1(x, halves=True))
         for block in self.m:
             parts.append(ckpt_region(block, parts[-1]) if remat
                          else block(parts[-1]))
@@ -99,7 +99,9 @@ class Attention(nn.Module):
         self.pe = ConvBN(ch, ch, 3, padding=1, groups=ch, act=identity)
         self.proj = ConvBN(ch, ch, act=identity)
 
-    def forward(self, x):
+    def forward(self, x, residual=None):
+        """proj(attention + pe(v)), plus `residual` where given (added in
+        the proj conv's epilogue)."""
         b, c, h, w = x.shape
         heads = self.num_head
         dh = c // heads
@@ -124,9 +126,10 @@ class Attention(nn.Module):
             out = fused_attention(to_heads(q, dk), to_heads(k, dk),
                                   to_heads(v, dh), dk ** -0.5)
             out = out.reshape(b, heads, t, dh).transpose(1, 2)
-        out = out.reshape(b, h, w, c)
-        pos = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2))
-        return self.proj(out.permute(0, 3, 1, 2) + pos)
+        out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        # attention + pe(v), the sum taken in the pe conv's epilogue
+        y = self.pe(v.reshape(b, h, w, c).permute(0, 3, 1, 2), residual=out)
+        return self.proj(y, residual=residual)
 
 
 class PSABlock(nn.Module):
@@ -139,8 +142,8 @@ class PSABlock(nn.Module):
                                   ConvBN(ch * 2, ch, act=identity)])
 
     def forward(self, x):
-        x = x + self.attn(x)
-        return x + self.ffn[1](self.ffn[0](x))
+        x = self.attn(x, residual=x)
+        return self.ffn[1](self.ffn[0](x), residual=x)
 
 
 class PSA(nn.Module):
@@ -167,7 +170,7 @@ class PSA(nn.Module):
         return self._forward(x, remat)
 
     def _forward(self, x, remat):
-        a, y = self.conv1(x).chunk(2, 1)
+        a, y = self.conv1(x, halves=True)
         for block in self.m:
             y = ckpt_region(block, y) if remat else block(y)
         return self.conv2(torch.cat((a, y), 1))

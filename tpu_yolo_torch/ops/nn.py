@@ -41,7 +41,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from tpu_yolo_torch import parallel
+from tpu_yolo_torch.ops.bias_act_cuda import DTYPES as EPILOGUE_DTYPES
+from tpu_yolo_torch.ops.bias_act_cuda import bias_act
 from tpu_yolo_torch.parallel import spatial, tensor
+from tpu_yolo_torch.utils import telemetry
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -73,6 +76,24 @@ def ckpt_region(fn, *args):
 
 def identity(x):
     return x
+
+
+# the activations the folded conv's epilogue pass (ops/bias_act_cuda.py) has
+EPILOGUE_ACTS = {F.silu: "silu", identity: "identity"}
+
+
+def epilogue_on_card(x) -> bool:
+    """Whether a folded float conv on x runs its bias, activation and
+    residual in the `bias_act` pass: on a CUDA tensor, cuDNN's convolution
+    takes no bias and PyTorch would add it in passes of its own."""
+    return x.is_cuda
+
+
+def _plus(residual, y, halves: bool = False):
+    """residual + y, or y where there is no residual; with `halves` the two
+    halves of its channels."""
+    y = y if residual is None else residual + y
+    return y.chunk(2, 1) if halves else y
 
 
 def _pads(padding):
@@ -178,16 +199,22 @@ class ConvBN(nn.Module):
     def quantized(self) -> bool:
         return hasattr(self, "w_q")
 
-    def forward(self, x):
+    def forward(self, x, residual=None, halves: bool = False):
+        """The conv, its BatchNorm and activation on x, plus `residual`
+        (a tensor of the output's shape) where given: `residual + conv(x)`,
+        in one pass with the bias and activation where the epilogue pass
+        takes them (`_forward`). With `halves`, the two halves of the
+        output's channels (as `chunk(2, 1)`), which the epilogue pass
+        writes as two maps, so that a conv that reads one copies nothing."""
         if self.shard is None:
-            return self._forward(x)
+            return self._forward(x, residual, halves)
         # split over the model axis (parallel/tensor.py): this rank's output
         # channels from the whole input (a depthwise conv's from its own
         # input channels), then every rank's side by side
         x = tensor.copy_model(x, self.shard)
         if self.groups > 1:
             x = x[:, self.shard.lo:self.shard.hi]
-        return tensor.gather_model(self._forward(x), self.shard)
+        return _plus(residual, tensor.gather_model(self._forward(x), self.shard), halves)
 
     def _window(self, x, k: int):
         """(x, (ph, pw)): the input a k x k window runs over and the
@@ -216,20 +243,34 @@ class ConvBN(nn.Module):
         return self._run(lambda v: F.conv2d(v, w, b, stride=self.stride, padding=pad,
                                             groups=self.groups), x, w.shape[2])
 
-    def _forward(self, x):
+    def _forward(self, x, residual=None, halves: bool = False):
         if self.quantized:
-            return self._forward_int8(x)
+            return _plus(residual, self._forward_int8(x), halves)
         w = self.w if self.w.dtype == x.dtype else self.w.to(x.dtype)
         if self.folded:
             b = self.b if self.b.dtype == x.dtype else self.b.to(x.dtype)
-            return self.act(self._conv(x, w, b))
+            if not epilogue_on_card(x):
+                return _plus(residual, self.act(self._conv(x, w, b)), halves)
+            # on the card: cuDNN's conv without its bias, then the bias, the
+            # activation and the residual in one pass, bit-equal to
+            # PyTorch's three; PyTorch's own passes where the pass has no
+            # form (another activation, a dtype but bf16 and f32) or where
+            # autograd records through an input (the pass has no backward)
+            telemetry.add("conv.folded", 1)
+            act = EPILOGUE_ACTS.get(self.act)
+            if act is None or x.dtype not in EPILOGUE_DTYPES or (
+                    torch.is_grad_enabled() and any(
+                        t is not None and t.requires_grad for t in (x, w, b, residual))):
+                return _plus(residual, self.act(self._conv(x, w, b)), halves)
+            telemetry.add("conv.fused", 1)
+            return bias_act(self._conv(x, w), b, act, residual, halves)
         y = self._conv(x, w)
         if self.training:
-            return self._train_norm(y).to(x.dtype)
+            return _plus(residual, self._train_norm(y).to(x.dtype), halves)
         scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
         bias = self.beta.float() - self.mean.float() * scale
-        return self.act(y * scale.to(y.dtype).view(1, -1, 1, 1)
-                        + bias.to(y.dtype).view(1, -1, 1, 1))
+        return _plus(residual, self.act(y * scale.to(y.dtype).view(1, -1, 1, 1)
+                                        + bias.to(y.dtype).view(1, -1, 1, 1)), halves)
 
     def _train_norm(self, y):
         """BatchNorm over the batch and the activation, in f32: biased

@@ -29,6 +29,7 @@ from tpu_yolo_torch.utils import telemetry
 GROUPS = (  # first match wins; matched against the lowercased kernel name
     ("psa_attention", r"attention_\w*kernel"),
     ("nms_greedy_keep", r"nms_keep_kernel"),
+    ("bias_act", r"bias_act_kernel"),
     ("sort", r"sort|radix"),
     ("layout", r"nchwtonhwc|nhwctonchw|transpose"),
     ("conv", r"conv|xmma|implicit|cudnn|gemm|fprop|cutlass"),
@@ -107,7 +108,7 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
                         for ms, n, name in kernels[:15]],
         "own_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
                         for ms, n, name in kernels
-                        if _group(name) in ("psa_attention", "nms_greedy_keep")],
+                        if _group(name) in ("psa_attention", "nms_greedy_keep", "bias_act")],
         "span_ms_per_batch": {k: s * 1e3 / traced
                               for k, s in sorted(telemetry.device_seconds(prof).items())},
         "telemetry": telemetry.snapshot(),

@@ -88,10 +88,11 @@ def trace_convs(size: str, input_size: int, batch: int) -> list[dict]:
     def conv(m, inputs, y):
         x = inputs[0]
         o, cin_g, kh, kw = m.w.shape
+        y = y[0] if isinstance(y, tuple) else y   # a conv's output as two halves
         recs.append({"path": names[m], "kind": "conv",
                      "in": (x.shape[0], x.shape[2], x.shape[3], x.shape[1]),
                      "w": (kh, kw, cin_g, o),
-                     "out": (y.shape[0], y.shape[2], y.shape[3], y.shape[1]),
+                     "out": (y.shape[0], y.shape[2], y.shape[3], o),
                      "stride": m.stride, "groups": m.groups})
 
     def products(attn):

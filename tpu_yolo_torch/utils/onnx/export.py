@@ -21,7 +21,9 @@ Conventions, as in the JAX package's file:
     runs at any batch.
   * The PSA attention op `tpu_yolo_torch::psa_attention` is lowered to
     `attention_plain`'s arithmetic: MatMul(q, kᵀ), Mul(scale), softmax as
-    ReduceMax/Sub/Exp/ReduceSum/Div, MatMul with v. The nearest 2x
+    ReduceMax/Sub/Exp/ReduceSum/Div, MatMul with v. The folded conv's
+    epilogue `tpu_yolo_torch::bias_act` (in a program traced on the card)
+    is Add/Sigmoid/Mul/Add (and a Split for its halves). The nearest 2x
     upsample is Reshape -> Expand -> Reshape. Only ops that both
     packages' interpreters execute are emitted (no Softmax, no Resize),
     so each interpreter runs the other's file.
@@ -43,7 +45,7 @@ from torch import nn
 from torch.export.graph_signature import InputKind
 
 from tpu_yolo_torch.core.config import ModelConfig
-from tpu_yolo_torch.ops import attention_cuda  # noqa: F401  (registers the op)
+from tpu_yolo_torch.ops import attention_cuda, bias_act_cuda  # noqa: F401  (registers the ops)
 from tpu_yolo_torch.ops.anchors import device_anchors
 from tpu_yolo_torch.utils.onnx import wire
 from tpu_yolo_torch.utils.onnx.wire import (attr_int, attr_ints, node, tensor,
@@ -308,6 +310,16 @@ class _Converter:
         rank = len(_val(n.args[0]).shape)
         return dim % rank if rank else 0
 
+    def _channel_bias(self, b) -> str:
+        """A per-channel bias as a (C, 1, 1) operand: an initializer where
+        it is static, else a Reshape."""
+        if b in self.consts:
+            name = self.hints.get(b)
+            return self.g.init(self.consts[b].detach().cpu().numpy()[:, None, None],
+                               name=None if name in self.g.names else name)
+        return self.g.add("Reshape", [self.operand(b), self.g.const_i64([-1, 1, 1])],
+                          hint="rs")
+
     def _convolution(self, n):
         """Conv, and the bias as an Add of a (C, 1, 1) initializer (both
         interpreters read Conv's first two inputs only)."""
@@ -318,15 +330,28 @@ class _Converter:
             attr_ints("dilations", dilation), attr_int("group", groups)],
             hint="conv")
         if b is not None:
-            if b in self.consts:
-                name = self.hints.get(b)
-                bias = self.g.init(self.consts[b].detach().cpu().numpy()[:, None, None],
-                                   name=None if name in self.g.names else name)
-            else:
-                bias = self.g.add("Reshape", [self.operand(b),
-                                              self.g.const_i64([-1, 1, 1])], hint="rs")
-            y = self.g.add("Add", [y, bias])
+            y = self.g.add("Add", [y, self._channel_bias(b)])
         self.values[n] = y
+
+    def _bias_act(self, n):
+        """The folded conv's epilogue, `bias_act_plain`'s arithmetic: Add
+        of the (C, 1, 1) bias, SiLU as Mul(v, Sigmoid(v)), Add of the
+        residual; with `halves`, a Split of the channels in two."""
+        y, b, act, residual, halves = n.args[:5]
+        g = self.g
+        v = g.add("Add", [self.operand(y), self._channel_bias(b)])
+        if act == "silu":
+            v = g.add("Mul", [v, g.add("Sigmoid", [v])])
+        if residual is not None:
+            v = g.add("Add", [self.operand(residual), v])
+        if not halves:
+            self.values[n] = [v]
+            return
+        half = _val(y).shape[1] // 2
+        outs = [g.fresh("sp"), g.fresh("sp")]
+        g.add("Split", [v, g.const_i64([half, half])], outputs=outs,
+              attrs=[attr_int("axis", 1)])
+        self.values[n] = outs
 
     def _max_pool(self, n):
         x, kernel = n.args[:2]
@@ -473,9 +498,9 @@ def _refuse_pad(c, n):
 
 
 def _refuse_float(c, n):
-    if _val(n).dtype != torch.float32:
-        return f"dtype {_val(n).dtype}"
-    return None
+    """A custom op at any dtype but f32, read from its first input."""
+    dtype = _val(n.args[0]).dtype
+    return None if dtype == torch.float32 else f"dtype {dtype}"
 
 
 _COPIES = (aten.clone.default, aten.alias.default, aten._to_copy.default)
@@ -506,6 +531,7 @@ _HANDLERS = {
     operator.add: _H._symint,
     operator.getitem: _H._getitem,
     torch.ops.tpu_yolo_torch.psa_attention.default: _H._attention,
+    torch.ops.tpu_yolo_torch.bias_act.default: _H._bias_act,
 }
 _REFUSALS = {
     aten.convolution.default: _refuse_conv,
@@ -515,13 +541,15 @@ _REFUSALS = {
     aten.upsample_nearest2d.vec: _refuse_upsample,
     aten.constant_pad_nd.default: _refuse_pad,
     torch.ops.tpu_yolo_torch.psa_attention.default: _refuse_float,
+    torch.ops.tpu_yolo_torch.bias_act.default: _refuse_float,
 }
 
 
 def supported_ops() -> list[str]:
     """The export contract: the sorted graph targets (core ATen ops after
-    `run_decompositions()`, SymInt arithmetic, `getitem` and the PSA
-    attention op) that the converter maps to ONNX nodes. Any node whose
+    `run_decompositions()`, SymInt arithmetic, `getitem`, the PSA
+    attention op and the conv epilogue's) that the converter maps to ONNX
+    nodes. Any node whose
     inputs are all static folds away whatever its target."""
     return sorted(_target_name(t) for t in _HANDLERS)
 

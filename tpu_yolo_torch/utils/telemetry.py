@@ -39,7 +39,9 @@ NMS), split without remainder into `layer.serve.nms.rank`,
 `.decode`, `.keep` and `.compact`. Counters: `nms.images`, `nms.slots`
 (keep slots offered, B·K), `nms.live` (ranked candidates above conf),
 `nms.budget_full` (images whose K-th candidate is above conf),
-`nms.kept`, `nms.capped` (images at max_det). Set-up:
+`nms.kept`, `nms.capped` (images at max_det); `conv.folded` (folded
+float convs run on a CUDA tensor, ops/nn.py) and `conv.fused` (those
+whose bias, activation and residual ran in the `bias_act` pass). Set-up:
 `setup.place_s`, `setup.first_batch_s` (host seconds of the Detector's
 placement and of its first batch), `setup.kernels_built` and
 `setup.build_s.<library>` (ops/cuda_build.py's compiles in this
@@ -59,7 +61,8 @@ SERVE_SPANS = ("layer.serve.stage", "layer.serve.forward", "layer.serve.nms",
 # (launch-count key, module, wrapper) of the kernels counted in `.launches`
 _KERNELS = (("psa_attention", "tpu_yolo_torch.ops.attention_cuda", "fused_attention"),
             ("nms_greedy_keep", "tpu_yolo_torch.ops.nms_cuda", "greedy_keep"),
-            ("topk_mask", "tpu_yolo_torch.ops.topk_cuda", "topk_mask"))
+            ("topk_mask", "tpu_yolo_torch.ops.topk_cuda", "topk_mask"),
+            ("bias_act", "tpu_yolo_torch.ops.bias_act_cuda", "bias_act"))
 _SLOTS = 16   # device counters a process may name
 PENDING_MAX = 32   # device counts held before they are summed
 
