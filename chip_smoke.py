@@ -66,7 +66,10 @@ against CPU beside an f64 witness; v11-x evaluates through `run_test` (the
 attention kernel in its resident form at (192, 400)) and the parity
 harness (tpu_yolo_torch/parity_check.py), trains one epoch through
 `trainer.train`, times `train_step` at the largest batch each remat level
-fits on the card, and holds an f32 step card against CPU. The kernels are custom ops
+fits on the card, and holds an f32 step card against CPU. Then v12-x
+(phase y) serves batches of 128 with its counters on for one batch:
+16 launches of the area attention op, held against its plain version at
+their inputs, and its f32 path card against CPU. The kernels are custom ops
 (`torch.ops.tpu_yolo_torch.*`), so every launch goes through the
 dispatcher. Each phase prints one JSON line; the line before the last
 lists the kernels
@@ -106,12 +109,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,    # dense, per type
               "tfloat32": 495e12}
 ATTN_TOL = {"bfloat16": 1e-2, "float32": 1e-5}        # atol and rtol
 IOU_FLOPS_PER_PAIR = 14   # f32 operations of one masked IoU test
-# attention checks (dtype, BH, T): the serving shape and T=333 (not a multiple of 8)
-# with K/V resident, the 1280 px shape, eval's (val batch 32) and one
-# image's, T=57 and T=1 with K/V streamed
-ATTN_CASES = (("bfloat16", 256, 400), ("bfloat16", 16, 1600), ("bfloat16", 64, 400),
-              ("bfloat16", 2, 400), ("bfloat16", 3, 57), ("bfloat16", 5, 1),
-              ("bfloat16", 200, 333), ("float32", 32, 400))
+# attention checks (dtype, BH, T, value width): the serving shape and T=333
+# (not a multiple of 8) with K/V resident, the 1280 px shape, eval's (val
+# batch 32) and one image's, T=57 and T=1 with K/V streamed; 32-wide values
+# (YOLO12's area attention) at v12-x's P4 and P5 and streamed
+ATTN_CASES = (("bfloat16", 256, 400, 64), ("bfloat16", 16, 1600, 64), ("bfloat16", 64, 400, 64),
+              ("bfloat16", 2, 400, 64), ("bfloat16", 3, 57, 64), ("bfloat16", 5, 1, 64),
+              ("bfloat16", 200, 333, 64), ("float32", 32, 400, 64),
+              ("bfloat16", 6144, 400, 32), ("bfloat16", 1536, 400, 32),
+              ("bfloat16", 3, 57, 32), ("float32", 32, 400, 32))
+# the 32-wide form's rows of phase (g): v12-x's P4 (128 images, 4 strips,
+# 12 heads) and P5 (128 images, 12 heads), T = 400
+V32_SHAPES = ((6144, 400), (1536, 400))
+# the area attention op (q, k and v read in place from a qkv conv's NHWC
+# map, the output an NHWC map) in phases (c) and (g), on random maps
+# (dtype, B, H, W, strips) of 12 heads: v12-x's P4 (128 images of 40x40
+# in 4 strips of 400 tokens) and P5 (20x20, one strip), and the f32 form
+AREA_HEADS = 12
+AREA_CASES = (("bfloat16", 128, 40, 40, 4), ("bfloat16", 128, 20, 20, 1),
+              ("float32", 4, 40, 40, 4))
 # greedy-keep checks (scene of seeded.nms_scene, B, K); the second group
 # stresses the walk: the most killers, one cluster, nothing valid, K=1 and
 # ragged last words. It draws from a generator of its own: the serving
@@ -467,11 +483,11 @@ def main() -> int:
     # (c) attention kernel against attention_plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
     attn_rows = []
-    for dtype, bh, t in ATTN_CASES:
+    for dtype, bh, t, dh in ATTN_CASES:
         dtype = getattr(torch, dtype)
         q, k = (torch.randn(bh, t, 32, device=dev, generator=gen).to(dtype)
                 for _ in range(2))
-        v = torch.randn(bh, t, 64, device=dev, generator=gen).to(dtype)
+        v = torch.randn(bh, t, dh, device=dev, generator=gen).to(dtype)
         scale = 32 ** -0.5
         got = attention_cuda.fused_attention(q, k, v, scale)
         want = attention_cuda.attention_plain(q, k, v, scale)
@@ -479,15 +495,29 @@ def main() -> int:
         tol = ATTN_TOL[str(dtype).split(".")[1]]
         err = (got.float() - want.float()).abs()
         ok = bool((err <= tol + tol * want.float().abs()).all())
-        row = dict(dtype=str(dtype), bh=bh, t=t,
-                   form=attention_cuda.kernel_form(bh, t, dtype),
+        row = dict(dtype=str(dtype), bh=bh, t=t, dh=dh,
+                   form=attention_cuda.kernel_form(bh, t, dtype, dh),
                    max_abs_err=float(err.max()),
                    tol=f"atol {tol} + rtol {tol}", ok=ok)
         attn_rows.append(row)
         check(ok, f"attention kernel vs plain {row}")
     check({"resident", "streamed", "f32"} <= {r["form"] for r in attn_rows},
           f"a form of the attention kernel was not run: {attn_rows}")
-    emit("attention_check", cases=attn_rows)
+    # the area attention op on random qkv maps, from a generator of its own
+    area_gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    area_rows = []
+    for dtype, b, h, w, area in AREA_CASES:
+        qkv = _area_map(b, h, w, getattr(torch, dtype), area_gen)
+        ok, err = _area_check(qkv, AREA_HEADS, area, 32 ** -0.5)
+        row = dict(dtype=dtype, b=b, h=h, w=w, area=area, heads=AREA_HEADS,
+                   bh=b * area * AREA_HEADS, t=h * w // area,
+                   form=attention_cuda.kernel_form(b * area * AREA_HEADS, h * w // area,
+                                                   qkv.dtype, 32),
+                   max_abs_err=err, tol=f"atol {ATTN_TOL[dtype]} + rtol {ATTN_TOL[dtype]}",
+                   ok=ok)
+        area_rows.append(row)
+        check(ok, f"area attention op vs plain {row}")
+    emit("attention_check", cases=attn_rows, area_cases=area_rows)
 
     # (d) NMS kernel against greedy_keep_plain, bit for bit
     rng = np.random.default_rng(SEED)
@@ -720,6 +750,9 @@ def main() -> int:
     # (x) every model size: each serves; v11-x evaluates (run_test, the
     # parity harness) and trains at the batch and remat level the card holds
     _model_sizes_phase(smi, captured, launches, val_split)
+
+    # (y) v12-x serves: the area attention op counted in its own batch
+    _yolo12_phase(smi, captured, launches)
 
     # (g) each kernel at its main-path inputs: error, times, bound
     with torch.inference_mode():
@@ -4164,6 +4197,114 @@ def _model_sizes_phase(smi, captured, launches, val_split):
          train_f32_card_vs_cpu=f32, phase_seconds=time.perf_counter() - t_phase)
 
 
+def _yolo12_phase(smi, captured, launches):
+    """Phase (y): v12-x serves batches of 128 seeded 640 px images in bf16
+    through `Detector`. One batch runs with every count at 0 and a
+    profiler recording, so that the port's own counters count: each area
+    attention forward (`attn.area.calls`) is one launch of the area
+    attention op (`attn.area.kernel`, `launches.area_attention`), 16 a
+    batch, and PSA's op none; every folded conv's bias, SiLU, layer scale
+    and residual ran in the `bias_act` pass (`conv.fused` = `conv.folded`);
+    one greedy keep. The op's first inputs at P4 (4 strips) and P5 (one)
+    are held against its plain version within phase x's gate and kept for
+    phase (g); the keep's bit for bit. Then img/s, the forward's time,
+    and the f32 path card against CPU (phase x's check at v11-x)."""
+    import torch
+
+    from tpu_yolo_torch.core.config import get_model_config
+    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.ops import attention_cuda, blocks, nms, nms_cuda
+    from tpu_yolo_torch.seeded import seeded_images, serving_state
+    from tpu_yolo_torch.serve import Detector
+    from tpu_yolo_torch.utils import telemetry
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config("12x")
+    imgs = seeded_images(np.random.default_rng(SEED + 9), BATCH, SIZE)
+    state = serving_state(cfg, SEED, imgs[:16], "cuda")
+    det = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, device="cuda")
+    blocks_n = sum(isinstance(m, blocks.AreaAttention) for m in det.model.modules())
+    check(blocks_n == 16, f"v12-x has {blocks_n} area attention blocks, not 16")
+    for _ in range(2):
+        det.detect_batch(imgs)
+    torch.cuda.synchronize()
+
+    area_fn, keep_fn = blocks.area_attention, nms.greedy_keep
+    first = {}
+
+    def area_tap(qkv, heads, area, scale):
+        first.setdefault(area, (qkv, heads, area, scale))
+        return area_fn(qkv, heads, area, scale)
+
+    def keep_tap(boxes, cls, valid, thr):
+        first.setdefault("nms", (boxes, cls, valid, thr))
+        return keep_fn(boxes, cls, valid, thr)
+
+    telemetry.reset()
+    blocks.area_attention, nms.greedy_keep = area_tap, keep_tap
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            res = det.detect_batch(imgs)
+            torch.cuda.synchronize()
+        snap = telemetry.snapshot()
+    finally:
+        blocks.area_attention, nms.greedy_keep = area_fn, keep_fn
+        telemetry.reset()
+    counted = {k: snap.get(k, 0) for k in (
+        "launches.area_attention", "attn.area.calls", "attn.area.kernel",
+        "launches.psa_attention", "launches.nms_greedy_keep", "launches.bias_act",
+        "conv.folded", "conv.fused")}
+    check(counted["launches.area_attention"] == counted["attn.area.calls"]
+          == counted["attn.area.kernel"] == blocks_n
+          and counted["launches.psa_attention"] == 0
+          and counted["launches.nms_greedy_keep"] == 1
+          and counted["conv.fused"] == counted["conv.folded"] > 0,
+          f"v12-x: counts in a serving batch {counted}")
+    launches["x12"] = counted
+    check(sorted(k for k in first if k != "nms") == [1, 4],
+          f"v12-x: area attention strips {sorted(k for k in first if k != 'nms')}")
+    captured["x12_area"] = [first[4], first[1]]
+    errs = {}
+    for area in (4, 1):
+        qkv = first[area][0]
+        check(qkv.dtype == torch.bfloat16 and tuple(qkv.shape) == (
+            BATCH, 3 * 384, SIZE // (16 if area == 4 else 32), SIZE // (16 if area == 4 else 32)),
+            f"v12-x: area attention at {tuple(qkv.shape)}, {qkv.dtype}")
+        ok, errs[area] = _area_check(*first[area], p_step=MS_P_STEP)
+        check(ok, f"v12-x serving: area attention op vs plain, area {area}, "
+                  f"max err {errs[area]}")
+    boxes, cls, valid, thr = first["nms"]
+    check(torch.equal(nms_cuda.greedy_keep(boxes, cls, valid, thr),
+                      nms_cuda.greedy_keep_plain(boxes, cls, valid, thr)),
+          "v12-x serving: NMS kernel vs plain")
+    counts = res["count"].cpu()
+    check(all(bool(torch.isfinite(v.float()).all()) for v in res.values()),
+          "v12-x: non-finite serving output")
+    check(float((counts > 0).float().mean()) >= 0.9,
+          f"v12-x: too few images with detections: {counts.tolist()}")
+
+    iters = MS_SERVE_BATCHES["x"]
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        det.detect_batch(imgs)
+    torch.cuda.synchronize()
+    img_s = BATCH * iters / (time.perf_counter() - t0)
+    with torch.inference_mode():
+        xin = torch.from_numpy(imgs).cuda().to(torch.bfloat16) / 255
+        fwd_ms = cuda_ms(lambda: det.model.forward_raw(xin), iters=5, warmup=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del det, res, xin
+    torch.cuda.empty_cache()
+    f32 = _f32_card_vs_cpu(cfg, state, imgs[:2])
+    emit("yolo12", model="v12-x", nvidia_smi=smi, counted=counted,
+         area_attention_max_abs_err={str(a): e for a, e in errs.items()},
+         area_attention_forms={str(a): attention_cuda.kernel_form(
+             BATCH * a * AREA_HEADS, 400, torch.bfloat16, 32) for a in (4, 1)},
+         img_per_s=img_s, timed_batches=iters, forward_ms=fwd_ms,
+         peak_memory_gb=peak_gb, count_mean=float(counts.float().mean()),
+         f32_card_vs_cpu=f32, seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def _f32_card_vs_cpu(cfg, state, two):
     """Phase (f)'s check for one model, the f32 path (TF32 off) of two
     images on the card against the CPU, and both against an f64 witness
@@ -4186,7 +4327,7 @@ def _f32_card_vs_cpu(cfg, state, two):
 
     flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    attn_fn = blocks.fused_attention
+    attn_fn, area_fn = blocks.fused_attention, blocks.area_attention
     try:
         kw = dict(input_size=SIZE, compute_dtype=torch.float32, ranking="exact")
         on_card = Detector(YOLO.from_state_dict(cfg, state), device="cuda", **kw)
@@ -4196,13 +4337,14 @@ def _f32_card_vs_cpu(cfg, state, two):
         # the f64 witness: the attention's plain version (the kernel takes
         # bf16 and f32), NCHW convs
         blocks.fused_attention = attention_cuda.attention_plain
+        blocks.area_attention = attention_cuda.area_attention_plain
         f64 = YOLO.from_state_dict(cfg, state).fold_batchnorm().to("cuda", torch.float64)
         with torch.inference_mode():
             raw = f64.forward_raw(torch.from_numpy(two).cuda().double() / 255)
             exact = nms_from_raw([m.float() for m in raw], cfg, (SIZE, SIZE),
                                  **on_card._nms)
     finally:
-        blocks.fused_attention = attn_fn
+        blocks.fused_attention, blocks.area_attention = attn_fn, area_fn
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     rows = []
     for i in range(len(two)):
@@ -4298,6 +4440,18 @@ def _kernel_rows(captured, launches):
     v2 = torch.randn(16, 1600, 64, device=q.device, generator=gen).to(q.dtype)
     kernels[0]["second_shape"] = _attention_times(q2, k2, v2, scale)
 
+    # the 32-wide-value form at v12-x's area attention shapes, on random
+    # inputs, held against the plain version
+    for bh, t in V32_SHAPES:
+        q2, k2, v2 = (torch.randn(bh, t, 32, device=q.device, generator=gen).to(q.dtype)
+                      for _ in range(3))
+        want = attention_cuda.attention_plain(q2, k2, v2, scale).float()
+        err = (attention_cuda.fused_attention(q2, k2, v2, scale).float() - want).abs()
+        check(bool((err <= tol + tol * want.abs()).all()),
+              f"attention kernel, 32-wide values, vs plain at ({bh}, {t})")
+        kernels[0].setdefault("v32_shapes", []).append(
+            dict(max_abs_err=float(err.max()), **_attention_times(q2, k2, v2, scale)))
+
     kernels.append(dict(
         name="nms_greedy_keep", route="cuda", op="tpu_yolo_torch::nms_greedy_keep",
         source="tpu_yolo_torch/csrc/nms_keep.cu",
@@ -4348,9 +4502,107 @@ def _kernel_rows(captured, launches):
         plain_ms=cuda_ms(lambda: topk_cuda.topk_mask_plain(x, TOP_K), iters=5),
         bound_ms=bound, bound_by=bound_by,
         library_ms=cuda_ms(library, iters=5, graph=True)))
+    kernels += _area_rows(captured, launches)
     kernels += _bias_act_rows(captured, launches)
     kernels += _card_kernel_rows(captured, launches)
     return kernels
+
+
+def _area_map(b, h, w, dtype, gen):
+    """A random qkv map of AREA_HEADS heads, (B, 3·32·heads, H, W) in
+    channels_last memory, as the qkv conv writes it."""
+    import torch
+
+    qkv = torch.randn(b, 3 * 32 * AREA_HEADS, h, w, device=gen.device, generator=gen)
+    return qkv.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _area_heads(x, heads, area, d=32):
+    """q, k, v of a qkv map (B, 3·d·heads, H, W) as contiguous (B·area·heads,
+    T, d) tensors, in area_attention_plain's order."""
+    b, _, h, w = x.shape
+    t = h * w // area
+    x = x.permute(0, 2, 3, 1).reshape(b * area, t, heads, 3, d)
+    return tuple(x[..., i, :].transpose(1, 2).reshape(b * area * heads, t, d)
+                 for i in range(3))
+
+
+def _area_check(qkv, heads, area, scale, p_step=0.0):
+    """The area attention op against area_attention_plain on `qkv`:
+    (within ATTN_TOL abs + rel, plus p_step · (P|V|) where given, as phase
+    x's gate; the largest error)."""
+    import torch
+
+    from tpu_yolo_torch.ops import attention_cuda
+
+    got = attention_cuda.area_attention(qkv, heads, area, scale).float()
+    want = attention_cuda.area_attention_plain(qkv, heads, area, scale).float()
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(qkv.dtype).split(".")[1]]
+    err = (got - want).abs()
+    gate = tol + tol * want.abs()
+    if p_step:
+        q, k, v = (t.float() for t in _area_heads(qkv, heads, area))
+        p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, -1)
+        b, c3, h, w = qkv.shape
+        steps = p_step * torch.matmul(p, v.abs())
+        gate = gate + steps.view(b * area, heads, -1, c3 // 3 // heads).transpose(1, 2).reshape(
+            b, h, w, c3 // 3).permute(0, 3, 1, 2)
+    ok = bool((err <= gate).all()) and got.is_contiguous(memory_format=torch.channels_last)
+    return ok, float(err.max())
+
+
+def _area_times(qkv, heads, area, scale):
+    """The area attention op's shape, form, times and bound on a qkv map,
+    as _attention_times gives the (BH, T, d) op's. `library_ms` is
+    F.scaled_dot_product_attention's on q, k, v already copied to
+    (1, BH, T, 32): the copies that the op does without are left out."""
+    import torch.nn.functional as F
+
+    from tpu_yolo_torch.ops import attention_cuda
+
+    q, k, v = _area_heads(qkv, heads, area)
+    bound, bound_by = attention_cost(q, v, str(qkv.dtype).split(".")[1])
+    ms = cuda_ms(lambda: attention_cuda.area_attention(qkv, heads, area, scale), graph=True)
+    library = cuda_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                             scale=scale), graph=True)
+    b, c3, h, w = qkv.shape
+    return dict(
+        shape=dict(b=b, c=c3 // 3, h=h, w=w, heads=heads, area=area, bh=q.shape[0],
+                   t=q.shape[1], dk=32, dh=32, dtype=str(qkv.dtype),
+                   form=attention_cuda.kernel_form(q.shape[0], q.shape[1], qkv.dtype, 32)),
+        ms=ms, ms_with_launch=cuda_ms(
+            lambda: attention_cuda.area_attention(qkv, heads, area, scale)),
+        plain_ms=cuda_ms(lambda: attention_cuda.area_attention_plain(qkv, heads, area, scale),
+                         iters=5),
+        bound_ms=bound, bound_by=bound_by, library_ms=library,
+        ms_over_bound=ms / bound, ms_over_library=ms / library)
+
+
+def _area_rows(captured, launches):
+    """Phase (g)'s row of the area attention op: its launches in v12-x's
+    counted batch (phase y), its error and times at that batch's inputs
+    (P4 and P5) and on phase (c)'s random maps."""
+    import torch
+
+    main = []
+    for qkv, heads, area, scale in captured["x12_area"]:
+        ok, err = _area_check(qkv, heads, area, scale, p_step=MS_P_STEP)
+        check(ok, f"area attention op vs plain at v12-x's inputs, area {area}")
+        main.append(dict(max_abs_err=err, **_area_times(qkv, heads, area, scale)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    random = []
+    for dtype, b, h, w, area in AREA_CASES:
+        qkv = _area_map(b, h, w, getattr(torch, dtype), gen)
+        ok, err = _area_check(qkv, AREA_HEADS, area, 32 ** -0.5)
+        check(ok, f"area attention op vs plain on a random map {(dtype, b, h, w, area)}")
+        random.append(dict(max_abs_err=err, **_area_times(qkv, AREA_HEADS, area, 32 ** -0.5)))
+    return [dict(
+        name="area_attention", route="cuda", op="tpu_yolo_torch::area_attention",
+        source="tpu_yolo_torch/csrc/attention.cu",
+        replaces="none: the JAX package has no YOLO12",
+        launches=launches["x12"]["launches.area_attention"],
+        x12_serving_shapes=main, random_shapes=random)]
 
 
 def _bias_act_rows(captured, launches):
@@ -4566,7 +4818,8 @@ def _attention_times(q, k, v, scale):
     return dict(
         shape=dict(bh=q.shape[0], t=q.shape[1], dk=q.shape[2], dh=v.shape[2],
                    dtype=str(q.dtype),
-                   form=attention_cuda.kernel_form(q.shape[0], q.shape[1], q.dtype)),
+                   form=attention_cuda.kernel_form(q.shape[0], q.shape[1], q.dtype,
+                                                   v.shape[2])),
         ms=ms, ms_with_launch=cuda_ms(
             lambda: attention_cuda.fused_attention(q, k, v, scale)),
         plain_ms=cuda_ms(lambda: attention_cuda.attention_plain(q, k, v, scale)),

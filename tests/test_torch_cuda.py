@@ -60,6 +60,53 @@ def test_attention_kernel_matches_plain(cuda, dtype, bh, t, form):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,bh,t,form", [
+    (torch.bfloat16, 6144, 400, "resident"),  # v12-x's P4: 128 images, 4 strips, 12 heads
+    (torch.bfloat16, 1536, 400, "resident"),  # v12-x's P5
+    (torch.bfloat16, 140, 800, "resident"),   # the longest resident T of 32-wide values
+    (torch.bfloat16, 140, 801, "streamed"),
+    (torch.bfloat16, 3, 57, "streamed"),
+    (torch.float32, 8, 400, "f32")])
+def test_attention_kernel_32_wide_values_match_plain(cuda, dtype, bh, t, form):
+    """The 32-wide-value form (P·V m64n32k16, V in the 64-byte swizzle):
+    within the 64-wide form's tolerances of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(bh, t, 32, device=cuda, generator=gen).to(dtype) for _ in range(3))
+    got = fused_attention(q, k, v, 32 ** -0.5)
+    torch.cuda.synchronize()
+    if torch.cuda.get_device_properties(cuda).multi_processor_count == 132:
+        assert kernel_form(bh, t, dtype, dh=32) == form
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), attention_plain(q, k, v, 32 ** -0.5).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,shape,area", [
+    (torch.bfloat16, (128, 1152, 40, 40), 4),   # v12-x's P4
+    (torch.bfloat16, (16, 1152, 20, 20), 1),    # its P5
+    (torch.bfloat16, (2, 384, 12, 20), 1),
+    (torch.float32, (4, 192, 8, 8), 4)])
+def test_area_attention_in_place_matches_plain(cuda, dtype, shape, area):
+    """q, k and v read in place from the qkv map, the output written as an
+    NHWC map: the plain version's reshapes and products, within the
+    attention kernel's tolerances."""
+    from tpu_yolo_torch.ops.attention_cuda import area_attention, area_attention_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(shape, device=cuda, generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    heads = shape[1] // 96
+    before = area_attention.launches
+    got = area_attention(qkv, heads, area, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert area_attention.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), area_attention_plain(qkv, heads, area,
+                                                                 32 ** -0.5).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_attention_kernel_with_large_scores(cuda):
     """Scores of some hundreds: the running max keeps exp2 in range, and a
     row dominated by one key returns that key's value."""
@@ -177,6 +224,25 @@ def test_bias_act_kernel_equals_plain(cuda, dtype, shape, act, residual, halves,
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
         assert g.is_contiguous(memory_format=cl) and torch.equal(g, w_)
+
+
+@pytest.mark.parametrize("c,form", [(768, "vector"), (464, "vector"), (460, "scalar")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bias_act_kernel_with_a_scale_equals_plain(cuda, dtype, c, form):
+    """YOLO12's layer-scaled residual, r + s · SiLU(y + b), bit for bit
+    against PyTorch's passes, in both forms (460, v12-x's unpadded MLP
+    width, is not a multiple of 8)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    y, r = (torch.randn(16, c, 20, 20, device=cuda, generator=gen).to(dtype).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    b, s = (torch.randn(c, device=cuda, generator=gen).to(dtype) for _ in range(2))
+    if dtype == torch.float32:
+        form = "vector" if c % 4 == 0 else "scalar"
+    assert bias_act_cuda.kernel_form(y, b, r, scale=s) == form
+    got = bias_act(y, b, "silu", r, scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, r + s.view(1, -1, 1, 1) * torch.nn.functional.silu(
+        y + b.view(1, -1, 1, 1)))
 
 
 def test_bias_act_kernel_launches_nothing_on_an_empty_map(cuda):

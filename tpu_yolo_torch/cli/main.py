@@ -38,10 +38,14 @@ import random
 
 import numpy as np
 
+from tpu_yolo_torch.core.config import SIZES
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("tpu-yolo-torch")
-    p.add_argument("--model-size", default="n", choices=list("ntsmlx"))
+    p.add_argument("--model-size", default="n", choices=SIZES,
+                   help="YOLO11 n/t/s/m/l/x, or YOLO12 12n/12s/12m/12l/12x (which "
+                        "serves, tests, profiles and exports; it does not train)")
     p.add_argument("--input-size", default=640, type=int)
     p.add_argument("--batch-size", default=32, type=int)
     p.add_argument("--val-batch-size", default=32, type=int)
@@ -253,6 +257,10 @@ def _run(args, dp, is_rank0: bool):
 
     if args.train:
         from tpu_yolo_torch.train.trainer import train
+
+        if cfg.arch != "yolo11":
+            raise SystemExit(f"--train: {args.model_size} is {cfg.arch}, whose training is "
+                             f"not ported; it serves, tests, profiles and exports")
 
         if is_rank0:
             print_banner(args, cfg)

@@ -1,7 +1,9 @@
-// PSA attention for Hopper: out = softmax(q·kᵀ·scale)·v.
+// Attention for Hopper: out = softmax(q·kᵀ·scale)·v, for YOLO11's PSA block
+// (q/k 32 wide, v 64) and YOLO12's area attention (q, k and v 32 wide).
 //
 // Replaces the TPU kernel tpu_yolo/ops/attention_pallas.py::fused_attention
-// (_attn_kernel). That kernel holds all of K and V of a head in VMEM and
+// (_attn_kernel); the JAX package has no YOLO12, and the 32-wide form is the
+// same kernel at another value width. That kernel holds all of K and V of a head in VMEM and
 // takes a full-row softmax. Casts follow it: scores and the softmax in f32,
 // each p rounded to v's type before the PV product, PV accumulated in f32,
 // the output written in v's type. (p is rounded before it is normalized:
@@ -47,8 +49,23 @@
 // FMAs, one query row per thread, K/V in tiles of 64 keys; each tile's
 // sums are taken on their own and added to the running ones.
 //
-// Layout: q, k (BH, T, 32), v and out (BH, T, 64), contiguous, 16-byte
-// aligned.
+// Values 32 wide (YOLO12, forms named attention_v32_*): P·V is m64n32k16
+// and a V tile is 80 rows of 64 bytes in the 64-byte swizzle, as K's; a
+// stage is 10 KB, so the resident form takes heads of up to 10 tiles (T <=
+// 800) at two blocks an SM, and at T = 400 an SM's shared memory holds four.
+// At YOLO12-x's P4 (BH = 6144, T = 400) a call moves 629 MB (0.19 ms) and
+// does 126 GFLOP (0.13 ms).
+//
+// Layout: the 64-wide forms take q, k (BH, T, 32), v and out (BH, T, 64),
+// contiguous. In the 32-wide forms head i of q, k, v and out is sequence g
+// = i / heads, head h = i % heads, and its row r starts at g·batch +
+// h·head + r·row elements (the Layout's `in` strides for q, k and v, its
+// `out` strides for out; the last dimension is contiguous): the area
+// attention reads q, k and v in place from the qkv conv's NHWC map (row
+// 3C, head 96, q, k, v at offsets 0, 32, 64) and writes out as an NHWC map
+// (row C, head 32); contiguous (BH, T, 32) tensors are heads 1. bf16:
+// every row and head offset a multiple of 8 elements and the pointers
+// 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,9 +75,21 @@
 namespace {
 
 constexpr int DK = 32;
-constexpr int DH = 64;
 constexpr int BQ = 64;   // queries per tile: wgmma's M (bf16), a block's rows (f32)
 constexpr int BKV = 64;  // keys per shared-memory tile of the f32 kernel
+
+// Where head i's rows lie (module comment): element strides.
+struct Strides {
+  long long batch, head, row;
+};
+struct Layout {
+  Strides in, out;
+  int heads;
+};
+
+__device__ __forceinline__ long long head_offset(const Strides& s, int heads, long long i) {
+  return (i / heads) * s.batch + (i % heads) * s.head;
+}
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, cp.async ring, two warpgroups of 64 query rows each.
@@ -71,11 +100,17 @@ constexpr int WGS = 2;                 // warpgroups per block
 constexpr int THREADS = WGS * 128;
 constexpr int PREFETCH = 3;            // key tiles in flight ahead of the products
 constexpr int RING = PREFETCH + 1;     // stages of the streamed form
-constexpr int MAX_RESIDENT = 7;        // stages of the resident form (T <= 560): two blocks an SM
 constexpr int K_TILE_BYTES = BN * DK * 2;
-constexpr int V_TILE_BYTES = BN * DH * 2;
-constexpr int STAGE_BYTES = K_TILE_BYTES + V_TILE_BYTES;  // 15 KB, a multiple of 1024
 constexpr int SMEM_ALIGN = 1024;       // the 128-byte swizzle repeats every 1024 bytes
+
+// The value width's shapes: a V tile's bytes (a multiple of 1024), a
+// stage's, and the resident form's most stages at two blocks an SM.
+template <int DH>
+struct VForm {
+  static constexpr int V_TILE_BYTES = BN * DH * 2;
+  static constexpr int STAGE_BYTES = K_TILE_BYTES + V_TILE_BYTES;  // 15 KB (64), 10 KB (32)
+  static constexpr int MAX_RESIDENT = DH == 64 ? 7 : 10;             // T <= 560, T <= 800
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
@@ -162,8 +197,7 @@ __device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], const uint32_t (
 }
 
 // d (64 x 64, f32) += a (64 x 16 bf16, registers) · b, b MN-major in shared memory
-__device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t b) {
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -186,6 +220,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32, f32) += a (64 x 16 bf16, registers) · b, b MN-major in shared memory
+__device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // c_log2e is |scale|·log2(e), folded into the exponent with one FMA a score,
 // so the maxima are taken of the raw scores; a negative scale flips the sign
 // bits of Q instead (q_sign 0x80008000), which is exact. The caller keeps
@@ -194,10 +246,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_tb(float (&d)[32], const uint32_
 // grid (bh, query groups): with one query group (the resident form, stages ==
 // ntiles) a warpgroup walks the query tiles wg, wg + 2, ...; otherwise (the
 // streamed form, stages == RING) a block has one query tile a warpgroup.
-__global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
+// The body of both bf16 kernels (one a value width, so that a trace tells
+// them apart by name).
+template <int DH>
+__device__ __forceinline__ void attention_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int t, int ntiles,
-    int stages, float c_log2e, uint32_t q_sign) {
+    int stages, float c_log2e, uint32_t q_sign, const Layout& L) {
+  using F = VForm<DH>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t smem0 = ((uint32_t)__cvta_generic_to_shared(smem_raw) + SMEM_ALIGN - 1) &
                          ~(uint32_t)(SMEM_ALIGN - 1);
@@ -205,30 +261,40 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
   const int tid = threadIdx.x;
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;  // fragment row group, column pair
+  // the 64-wide form takes contiguous (BH, T, d) tensors: its strides are
+  // the compiler's constants, and its code the same as before the 32-wide
+  // form came (L is read by the 32-wide form alone)
+  constexpr bool CONTIG = DH == 64;
   const size_t bh = blockIdx.x;
-  const __nv_bfloat16* kb = k + bh * t * DK;
-  const __nv_bfloat16* vb = v + bh * t * DH;
-  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q + bh * t * DK);
-  uint32_t* o32 = reinterpret_cast<uint32_t*>(out + bh * t * DH);
+  const size_t qk_row = CONTIG ? DK : L.in.row, v_row = CONTIG ? DH : L.in.row;
+  const size_t q_row32 = qk_row / 2, o_row32 = (CONTIG ? DH : L.out.row) / 2;  // bf16 pairs
+  const __nv_bfloat16* kb = k + (CONTIG ? bh * t * DK : head_offset(L.in, L.heads, bh));
+  const __nv_bfloat16* vb = v + (CONTIG ? bh * t * DH : head_offset(L.in, L.heads, bh));
+  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(
+      q + (CONTIG ? bh * t * DK : head_offset(L.in, L.heads, bh)));
+  uint32_t* o32 = reinterpret_cast<uint32_t*>(
+      out + (CONTIG ? bh * t * DH : head_offset(L.out, L.heads, bh)));
 
   // tile -> its stage, in wgmma's swizzled layouts: the 16-byte chunk ch of
-  // row r lands at chunk ch ^ ((r >> 1) & 3) of a 64-byte K row and at chunk
-  // ch ^ (r & 7) of a 128-byte V row
+  // row r lands at chunk ch ^ ((r >> 1) & 3) of a 64-byte row (K, and V 32
+  // wide) and at chunk ch ^ (r & 7) of a 128-byte row (V 64 wide)
   auto load_tile = [&](int tile) {
-    const uint32_t kdst = smem0 + (tile % stages) * STAGE_BYTES;
+    const uint32_t kdst = smem0 + (tile % stages) * F::STAGE_BYTES;
     const uint32_t vdst = kdst + K_TILE_BYTES;
     const int k0 = tile * BN;
     for (int e = tid; e < BN * 4; e += THREADS) {
       const int r = e >> 2, ch = e & 3;
       const bool live = k0 + r < t;
       cp_async16(kdst + r * 64 + ((ch ^ ((r >> 1) & 3)) << 4),
-                 kb + (size_t)(live ? k0 + r : 0) * DK + ch * 8, live);
+                 kb + (size_t)(live ? k0 + r : 0) * qk_row + ch * 8, live);
     }
-    for (int e = tid; e < BN * 8; e += THREADS) {
-      const int r = e >> 3, ch = e & 7;
+    constexpr int V_CHUNKS = DH / 8;  // 16-byte chunks a V row
+    for (int e = tid; e < BN * V_CHUNKS; e += THREADS) {
+      const int r = e / V_CHUNKS, ch = e % V_CHUNKS;
       const bool live = k0 + r < t;
-      cp_async16(vdst + r * 128 + ((ch ^ (r & 7)) << 4),
-                 vb + (size_t)(live ? k0 + r : 0) * DH + ch * 8, live);
+      const int swz = DH == 64 ? ch ^ (r & 7) : ch ^ ((r >> 1) & 3);
+      cp_async16(vdst + r * (DH * 2) + (swz << 4),
+                 vb + (size_t)(live ? k0 + r : 0) * v_row + ch * 8, live);
     }
   };
 
@@ -244,10 +310,10 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const int col = kk * 8 + c;  // in bf16 pairs
-      qf[kk][0] = r_lo < t ? q32[(size_t)r_lo * (DK / 2) + col] ^ q_sign : 0u;
-      qf[kk][1] = r_hi < t ? q32[(size_t)r_hi * (DK / 2) + col] ^ q_sign : 0u;
-      qf[kk][2] = r_lo < t ? q32[(size_t)r_lo * (DK / 2) + col + 4] ^ q_sign : 0u;
-      qf[kk][3] = r_hi < t ? q32[(size_t)r_hi * (DK / 2) + col + 4] ^ q_sign : 0u;
+      qf[kk][0] = r_lo < t ? q32[(size_t)r_lo * q_row32 + col] ^ q_sign : 0u;
+      qf[kk][1] = r_hi < t ? q32[(size_t)r_hi * q_row32 + col] ^ q_sign : 0u;
+      qf[kk][2] = r_lo < t ? q32[(size_t)r_lo * q_row32 + col + 4] ^ q_sign : 0u;
+      qf[kk][3] = r_hi < t ? q32[(size_t)r_hi * q_row32 + col + 4] ^ q_sign : 0u;
     }
   };
   const int q_step = WGS * gridDim.y;
@@ -281,9 +347,13 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
         if (i + PREFETCH < ntiles) load_tile(i + PREFETCH);
         cp_async_commit();
       }
-      const uint32_t kaddr = smem0 + (i % stages) * STAGE_BYTES;
+      const uint32_t kaddr = smem0 + (i % stages) * F::STAGE_BYTES;
       const uint64_t kdesc = smem_desc(kaddr, 16, 512, 2);
-      const uint64_t vdesc = smem_desc(kaddr + K_TILE_BYTES, 1024, 1024, 1);
+      // V: MN-major, 8-row groups 8 rows apart (SBO); one 16-key k-step is
+      // 16 rows (128 or 64 in 16-byte units)
+      const uint64_t vdesc = DH == 64 ? smem_desc(kaddr + K_TILE_BYTES, 1024, 1024, 1)
+                                      : smem_desc(kaddr + K_TILE_BYTES, 512, 512, 2);
+      constexpr int V_KSTEP = 16 * DH * 2 / 16;
 
       // S = Q Kᵀ: 64 rows x 80 keys a warpgroup (the first k-step overwrites s)
       float s[BN / 2];
@@ -331,11 +401,11 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
       }
       pin(o);
 
-      // O += P V, 16 keys (16 V rows of 128 bytes) a k-step. P = exp2(s·c -
-      // m·c), rounded to bf16, goes from the S accumulators to the A
-      // fragments: keys 16kk..16kk+15 are this thread's columns 8kk..8kk+7.
-      // Each k-step's product is issued as soon as its P is made, and runs
-      // under the next k-step's exponentials.
+      // O += P V, 16 keys (16 V rows) a k-step. P = exp2(s·c - m·c), rounded
+      // to bf16, goes from the S accumulators to the A fragments: keys
+      // 16kk..16kk+15 are this thread's columns 8kk..8kk+7. Each k-step's
+      // product is issued as soon as its P is made, and runs under the next
+      // k-step's exponentials.
       const float mc_lo = m_lo * c_log2e, mc_hi = m_hi * c_log2e;
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
@@ -352,7 +422,7 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
         pa[2] = pack_bf16(p[4], p[5]);
         pa[3] = pack_bf16(p[6], p[7]);
         wgmma_fence();
-        wgmma_m64n64k16_tb(o, pa, vdesc + kk * 128);
+        wgmma_pv(o, pa, vdesc + kk * V_KSTEP);
         wgmma_commit();
       }
       wgmma_wait();
@@ -370,35 +440,54 @@ __global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
     for (int n = 0; n < DH / 8; ++n) {
       const int col = n * 4 + c;  // in bf16 pairs
       if (r_lo < t)
-        o32[(size_t)r_lo * (DH / 2) + col] = pack_bf16(o[4 * n] * inv_lo, o[4 * n + 1] * inv_lo);
+        o32[(size_t)r_lo * o_row32 + col] = pack_bf16(o[4 * n] * inv_lo, o[4 * n + 1] * inv_lo);
       if (r_hi < t)
-        o32[(size_t)r_hi * (DH / 2) + col] =
+        o32[(size_t)r_hi * o_row32 + col] =
             pack_bf16(o[4 * n + 2] * inv_hi, o[4 * n + 3] * inv_hi);
     }
     piped = false;
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 2) attention_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int t, int ntiles,
+    int stages, float c_log2e, uint32_t q_sign, Layout L) {
+  attention_bf16<64>(q, k, v, out, t, ntiles, stages, c_log2e, q_sign, L);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) attention_v32_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int t, int ntiles,
+    int stages, float c_log2e, uint32_t q_sign, Layout L) {
+  attention_bf16<32>(q, k, v, out, t, ntiles, stages, c_log2e, q_sign, L);
+}
+
 // ---------------------------------------------------------------------------
 // f32: CUDA-core FMAs, one query row per thread.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(BQ) attention_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int t, float scale) {
+template <int DH>
+__device__ __forceinline__ void attention_f32(const float* __restrict__ q,
+                                              const float* __restrict__ k,
+                                              const float* __restrict__ v,
+                                              float* __restrict__ out, int t, float scale,
+                                              const Layout& L) {
   __shared__ float ks[BKV][DK];
   __shared__ float vs[BKV][DH];
 
+  constexpr bool CONTIG = DH == 64;  // as the bf16 kernel's
   const size_t bh = blockIdx.x;
   const int row = blockIdx.y * BQ + threadIdx.x;
   const bool live = row < t;
-  const float* qb = q + bh * t * DK;
-  const float* kb = k + bh * t * DK;
-  const float* vb = v + bh * t * DH;
+  const size_t qk_row = CONTIG ? DK : L.in.row, v_row = CONTIG ? DH : L.in.row;
+  const float* qb = q + (CONTIG ? bh * t * DK : head_offset(L.in, L.heads, bh));
+  const float* kb = k + (CONTIG ? bh * t * DK : head_offset(L.in, L.heads, bh));
+  const float* vb = v + (CONTIG ? bh * t * DH : head_offset(L.in, L.heads, bh));
 
   float qr[DK];
 #pragma unroll
-  for (int d = 0; d < DK; ++d) qr[d] = live ? qb[(size_t)row * DK + d] : 0.f;
+  for (int d = 0; d < DK; ++d) qr[d] = live ? qb[(size_t)row * qk_row + d] : 0.f;
 
   float acc[DH];
 #pragma unroll
@@ -410,11 +499,11 @@ __global__ void __launch_bounds__(BQ) attention_f32_kernel(
     __syncthreads();  // the previous tile is consumed
     for (int e = threadIdx.x; e < BKV * DK; e += BQ) {
       const int j = k0 + e / DK;
-      ks[e / DK][e % DK] = j < t ? kb[(size_t)j * DK + e % DK] : 0.f;
+      ks[e / DK][e % DK] = j < t ? kb[(size_t)j * qk_row + e % DK] : 0.f;
     }
     for (int e = threadIdx.x; e < BKV * DH; e += BQ) {
       const int j = k0 + e / DH;
-      vs[e / DH][e % DH] = j < t ? vb[(size_t)j * DH + e % DH] : 0.f;
+      vs[e / DH][e % DH] = j < t ? vb[(size_t)j * v_row + e % DH] : 0.f;
     }
     __syncthreads();
 
@@ -454,60 +543,98 @@ __global__ void __launch_bounds__(BQ) attention_f32_kernel(
 
   if (live) {
     const float inv = 1.f / l;
-    float* ob = out + (bh * t + row) * DH;
+    float* ob = out + (CONTIG ? (bh * t + row) * DH
+                              : head_offset(L.out, L.heads, bh) + row * L.out.row);
 #pragma unroll
     for (int d = 0; d < DH; ++d) ob[d] = acc[d] * inv;
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(BQ) attention_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int t, float scale, Layout L) {
+  attention_f32<64>(q, k, v, out, t, scale, L);
+}
 
-// The form the bf16 kernel takes at (bh, t): 0, K/V resident (a block owns
-// a head), where a head's tiles fit a block's shared memory and there is a
-// head for every SM; 1, K/V streamed, otherwise. The f32 kernel has one form.
-extern "C" int psa_attention_form(int bh, int t) {
+__global__ void __launch_bounds__(BQ) attention_v32_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int t, float scale, Layout L) {
+  attention_f32<32>(q, k, v, out, t, scale, L);
+}
+
+template <int DH>
+int form_of(int bh, int t) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return -1;
-  return ((t + BN - 1) / BN <= MAX_RESIDENT && bh >= sms) ? 0 : 1;
+  return ((t + BN - 1) / BN <= VForm<DH>::MAX_RESIDENT && bh >= sms) ? 0 : 1;
 }
 
-// q, k: (bh, t, 32); v, out: (bh, t, 64); all bf16 (is_bf16 != 0) or all
-// f32, contiguous and 16-byte aligned. Launches on `stream` and returns the
-// first CUDA error, 0 if none.
-extern "C" int psa_attention(const void* q, const void* k, const void* v, void* out,
-                             int bh, int t, float scale, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const int form = psa_attention_form(bh, t);
-    if (form < 0) return static_cast<int>(cudaErrorUnknown);
-    const int ntiles = (t + BN - 1) / BN;
-    const int nq = (t + BQ - 1) / BQ;
-    const int stages = form == 0 ? ntiles : RING;
-    const dim3 grid(bh, form == 0 ? 1 : (nq + WGS - 1) / WGS);
-    static bool configured = false;  // shared memory above 48 KB is an opt-in
-    if (!configured) {
-      cudaError_t err = cudaFuncSetAttribute(
-          attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          MAX_RESIDENT * STAGE_BYTES + SMEM_ALIGN);
-      if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(attention_bf16_kernel,
-                                   cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   cudaSharedmemCarveoutMaxShared);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      configured = true;
-    }
-    attention_bf16_kernel<<<grid, THREADS, stages * STAGE_BYTES + SMEM_ALIGN, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), t, ntiles,
-        stages, fmaxf(fabsf(scale) * 1.4426950408889634f, 1e-30f),
-        scale < 0.f ? 0x80008000u : 0u);
-  } else {
-    const dim3 grid(bh, (t + BQ - 1) / BQ);
-    attention_f32_kernel<<<grid, BQ, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), t, scale);
+template <int DH>
+int launch_bf16(decltype(attention_bf16_kernel)* kernel, const void* q, const void* k,
+                const void* v, void* out, int bh, int t, float scale, const Layout& L,
+                cudaStream_t s) {
+  using F = VForm<DH>;
+  const int form = form_of<DH>(bh, t);
+  if (form < 0) return static_cast<int>(cudaErrorUnknown);
+  const int ntiles = (t + BN - 1) / BN;
+  const int nq = (t + BQ - 1) / BQ;
+  const int stages = form == 0 ? ntiles : RING;
+  const dim3 grid(bh, form == 0 ? 1 : (nq + WGS - 1) / WGS);
+  static bool configured = false;  // shared memory above 48 KB is an opt-in
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           F::MAX_RESIDENT * F::STAGE_BYTES + SMEM_ALIGN);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
   }
+  kernel<<<grid, THREADS, stages * F::STAGE_BYTES + SMEM_ALIGN, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), t, ntiles, stages,
+      fmaxf(fabsf(scale) * 1.4426950408889634f, 1e-30f), scale < 0.f ? 0x80008000u : 0u, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The form the bf16 kernel takes at (bh, t) for values dh wide: 0, K/V
+// resident (a block owns a head), where a head's tiles fit a block's shared
+// memory and there is a head for every SM; 1, K/V streamed, otherwise. The
+// f32 kernel has one form.
+extern "C" int psa_attention_form(int bh, int t, int dh) {
+  return dh == 32 ? form_of<32>(bh, t) : form_of<64>(bh, t);
+}
+
+// q, k: 32 wide; v, out: dh (32 or 64) wide; all bf16 (is_bf16 != 0) or
+// all f32; at dh 32, head i's rows where `strides` says (module comment:
+// q/k/v's and out's batch, head and row strides in elements, in that
+// order, and `heads`); at dh 64 contiguous, and `strides` and `heads`
+// unread.
+// Launches on `stream` and returns the first CUDA error, 0 if none.
+extern "C" int psa_attention(const void* q, const void* k, const void* v, void* out, int bh,
+                             int t, int dh, int heads, const long long* strides, float scale,
+                             int is_bf16, void* stream) {
+  if ((dh != 32 && dh != 64) || heads < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Layout L{{strides[0], strides[1], strides[2]},
+                 {strides[3], strides[4], strides[5]},
+                 heads};
+  if (is_bf16)
+    return dh == 64 ? launch_bf16<64>(attention_bf16_kernel, q, k, v, out, bh, t, scale, L, s)
+                    : launch_bf16<32>(attention_v32_bf16_kernel, q, k, v, out, bh, t, scale,
+                                      L, s);
+  const dim3 grid(bh, (t + BQ - 1) / BQ);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  if (dh == 64)
+    attention_f32_kernel<<<grid, BQ, 0, s>>>(qf, kf, vf, of, t, scale, L);
+  else
+    attention_v32_f32_kernel<<<grid, BQ, 0, s>>>(qf, kf, vf, of, t, scale, L);
   return static_cast<int>(cudaGetLastError());
 }

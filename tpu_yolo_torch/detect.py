@@ -17,13 +17,16 @@ import argparse
 import os
 import sys
 
+from tpu_yolo_torch.core.config import SIZES
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("tpu-yolo-torch detect", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("images", nargs="+", help="image paths")
     p.add_argument("--weights", required=True, help=".pt/.npz/.ckpt")
-    p.add_argument("--size", default="n", choices=list("ntsmlx"))
+    p.add_argument("--size", default="n", choices=SIZES,
+                   help="YOLO11 n/t/s/m/l/x or YOLO12 12n/12s/12m/12l/12x")
     p.add_argument("--input-size", default=640, type=int)
     p.add_argument("--conf", default=0.25, type=float)
     p.add_argument("--iou", default=0.65, type=float)

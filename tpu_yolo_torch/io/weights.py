@@ -386,9 +386,9 @@ def convert_state_dict(state: dict[str, np.ndarray], cfg,
         if key in out:
             raise KeyError(f"{src_key} -> {key}: filled twice")
         out[key] = torch.from_numpy(np.array(tensor, dtype=np.float32))
-    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.models.yolov11 import model_class
 
-    _check_coverage(out, YOLO(cfg).state_dict())
+    _check_coverage(out, model_class(cfg)(cfg).state_dict())
     return out
 
 

@@ -111,7 +111,13 @@ def _init_psa(rng, ch, n):
 
 def init_params(seed: int, cfg: ModelConfig):
     """The full parameter tree of one model size, in the JAX layout
-    (nested dicts/lists of float32 numpy arrays, HWIO kernels)."""
+    (nested dicts/lists of float32 numpy arrays, HWIO kernels): its
+    architecture's (`model_class(cfg).init_params`)."""
+    return model_class(cfg).init_params(seed, cfg)
+
+
+def _init_yolo11(seed: int, cfg: ModelConfig):
+    """YOLO11's parameter tree (`YOLO.init_params`)."""
     rng = np.random.default_rng(int(seed))
     w, d, csp_flags = cfg.width, cfg.depth, cfg.csp
 
@@ -250,37 +256,22 @@ class YOLO(nn.Module):
     common use; in training mode (`model.train()`) BatchNorm uses batch
     statistics and the attention takes its differentiable form.
 
+    `from_state_dict` and `shaped_like` build the class of the
+    configuration's architecture (`model_class`), so every entry point
+    that builds a model from a configuration (`Detector.from_checkpoint`,
+    the CLIs' `--model-size`) serves YOLO12 (models/yolov12.py) too.
+
     After `parallel.spatial.partition_spatial(model, mesh)` (`spatial` set)
     the forward takes this rank's rows of its images and returns the
     whole outputs of the unsharded forward."""
 
     spatial = None
+    init_params = staticmethod(_init_yolo11)
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        w, d, (csp0, csp1) = cfg.width, cfg.depth, cfg.csp
-        self.net = nn.ModuleDict({
-            "p1": nn.ModuleList([_down(w[0], w[1])]),
-            "p2": nn.ModuleList([_down(w[1], w[2]),
-                                 CSP(w[2], w[3], d[0], csp0, r=4)]),
-            "p3": nn.ModuleList([_down(w[3], w[3]),
-                                 CSP(w[3], w[4], d[1], csp0, r=4)]),
-            "p4": nn.ModuleList([_down(w[4], w[4]),
-                                 CSP(w[4], w[4], d[2], csp1, r=2)]),
-            "p5": nn.ModuleList([_down(w[4], w[5]),
-                                 CSP(w[5], w[5], d[3], csp1, r=2),
-                                 SPPF(w[5], w[5]),
-                                 PSA(w[5], d[4])]),
-        })
-        self.fpn = nn.ModuleDict({
-            "h1": CSP(w[4] + w[5], w[4], d[5], csp0, r=2),
-            "h2": CSP(w[4] + w[4], w[3], d[5], csp0, r=2),
-            "h3": _down(w[3], w[3]),
-            "h4": CSP(w[3] + w[4], w[4], d[5], csp0, r=2),
-            "h5": _down(w[4], w[4]),
-            "h6": CSP(w[4] + w[5], w[5], d[5], csp1, r=2),
-        })
+        self.net, self.fpn = self._stages(cfg)
         nc, reg = cfg.num_classes, cfg.reg_max
         filters = cfg.head_filters
         box_ch = max(64, filters[0] // 4)
@@ -301,12 +292,40 @@ class YOLO(nn.Module):
         })
         self.eval()
 
+    @staticmethod
+    def _stages(cfg: ModelConfig) -> tuple[nn.ModuleDict, nn.ModuleDict]:
+        """The backbone (`net`: p1..p5, each a strided conv and its
+        blocks) and the FPN (`fpn`: h1..h6) of the architecture."""
+        w, d, (csp0, csp1) = cfg.width, cfg.depth, cfg.csp
+        net = nn.ModuleDict({
+            "p1": nn.ModuleList([_down(w[0], w[1])]),
+            "p2": nn.ModuleList([_down(w[1], w[2]),
+                                 CSP(w[2], w[3], d[0], csp0, r=4)]),
+            "p3": nn.ModuleList([_down(w[3], w[3]),
+                                 CSP(w[3], w[4], d[1], csp0, r=4)]),
+            "p4": nn.ModuleList([_down(w[4], w[4]),
+                                 CSP(w[4], w[4], d[2], csp1, r=2)]),
+            "p5": nn.ModuleList([_down(w[4], w[5]),
+                                 CSP(w[5], w[5], d[3], csp1, r=2),
+                                 SPPF(w[5], w[5]),
+                                 PSA(w[5], d[4])]),
+        })
+        fpn = nn.ModuleDict({
+            "h1": CSP(w[4] + w[5], w[4], d[5], csp0, r=2),
+            "h2": CSP(w[4] + w[4], w[3], d[5], csp0, r=2),
+            "h3": _down(w[3], w[3]),
+            "h4": CSP(w[3] + w[4], w[4], d[5], csp0, r=2),
+            "h5": _down(w[4], w[4]),
+            "h6": CSP(w[4] + w[5], w[5], d[5], csp1, r=2),
+        })
+        return net, fpn
+
     @classmethod
     def shaped_like(cls, cfg: ModelConfig, state_dict) -> "YOLO":
         """A model of `cfg` in the form `state_dict` has (BatchNorm folded
         or not, the s2d stem, int8 convs where it has `w_q` leaves), its
         weights not loaded."""
-        model = cls(cfg)
+        model = model_class(cfg)(cfg)
         if not any(k.endswith(".gamma") for k in state_dict):
             model.fold_batchnorm()
         if has_s2d_stem(state_dict):
@@ -365,10 +384,6 @@ class YOLO(nn.Module):
         inner = stage and remat == "blocks"
         run = ckpt_region if stage else (lambda fn, *args: fn(*args))
 
-        def s5(xx):
-            xx = net["p5"][1](net["p5"][0](xx), remat=inner)
-            return net["p5"][3](net["p5"][2](xx), remat=inner)
-
         def top_down(p3, p4, p5):
             h4 = fpn["h1"](torch.cat((upsample2x(p5), p4), 1), remat=inner)
             h3 = fpn["h2"](torch.cat((upsample2x(h4), p3), 1), remat=inner)
@@ -391,7 +406,7 @@ class YOLO(nn.Module):
         x = run(lambda xx: net["p2"][1](net["p2"][0](xx), remat=inner), x)
         p3 = run(lambda xx: net["p3"][1](net["p3"][0](xx), remat=inner), x)
         p4 = run(lambda xx: net["p4"][1](net["p4"][0](xx), remat=inner), p3)
-        p5 = run(s5, p4)
+        p5 = run(lambda xx: self._p5(xx, inner), p4)
         h3, h4 = run(top_down, p3, p4, p5)
         h4b, h5b = run(bottom_up, h3, h4, p5)
         maps = [run(lambda f, b=box, c=cls: level(f, b, c), feat)
@@ -400,6 +415,12 @@ class YOLO(nn.Module):
         if self.spatial is not None:   # the whole maps, for the global anchors
             maps = [spatial.gather_rows(m, self.spatial) for m in maps]
         return [m.permute(0, 2, 3, 1) for m in maps]
+
+    def _p5(self, x, remat=False):
+        """The P5 stage: its strided conv, C3k2, SPPF and PSA."""
+        p5 = self.net["p5"]
+        x = p5[1](p5[0](x), remat=remat)
+        return p5[3](p5[2](x), remat=remat)
 
     def _check_spatial(self, x):
         """Refuse what the height-sharded forward cannot take."""
@@ -475,3 +496,13 @@ class YOLO(nn.Module):
             raise ValueError("fold_input_scale requires an unquantized stem")
         self.net["p1"][0].w.mul_(scale)
         return self
+
+
+def model_class(cfg: ModelConfig) -> type[YOLO]:
+    """The model class of a configuration's architecture: YOLO (YOLO11),
+    or YOLO12 (models/yolov12.py) where `cfg.arch` is "yolo12"."""
+    if cfg.arch == "yolo12":
+        from tpu_yolo_torch.models.yolov12 import YOLO12
+
+        return YOLO12
+    return YOLO

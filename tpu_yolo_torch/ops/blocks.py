@@ -1,16 +1,21 @@
 """YOLOv11 composite blocks as torch modules (counterpart of
-`tpu_yolo/ops/blocks.py`). Attribute names follow the JAX param tree.
+`tpu_yolo/ops/blocks.py`), and YOLO12's (`AreaAttention`, `ABlock`,
+`A2C2f`, after Ultralytics' `AAttn`, `ABlock` and `A2C2f`; the JAX
+package has no YOLO12). Attribute names follow the JAX param tree.
 Tensors are NCHW in shape (channels_last in memory); a channel index is
 the NHWC channel index of the JAX package, so its splits carry over as
 they are."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from tpu_yolo_torch.ops.attention_cuda import fused_attention
+from tpu_yolo_torch.ops.attention_cuda import (DK, area_attention, area_attention_plain,
+                                               fused_attention)
 from tpu_yolo_torch.ops.nn import ConvBN, ckpt_region, identity, max_pool
 from tpu_yolo_torch.parallel import spatial
+from tpu_yolo_torch.utils import telemetry
 
 
 class Residual(nn.Module):
@@ -174,3 +179,107 @@ class PSA(nn.Module):
         for block in self.m:
             y = ckpt_region(block, y) if remat else block(y)
         return self.conv2(torch.cat((a, y), 1))
+
+
+class AreaAttention(nn.Module):
+    """YOLO12's area attention (Ultralytics' `AAttn`): heads 32 wide; the
+    qkv conv's channels are [q | k | v] a head, head-major; the map's
+    tokens (row-major) are cut into `area` strips of whole rows, each
+    attended on its own; the output is proj(attention + pe(v)), pe a
+    depthwise 7x7 conv. In eval the products run in the hand-written
+    kernel on the card (`area_attention`, which reads q, k and v in place
+    and writes an NHWC map), inside the span `layer.serve.area_attn`."""
+
+    def __init__(self, ch: int, area: int):
+        super().__init__()
+        self.num_head, self.area = ch // DK, area
+        self.qkv = ConvBN(ch, 3 * ch, act=identity)
+        self.pe = ConvBN(ch, ch, 7, padding=3, groups=ch, act=identity)
+        self.proj = ConvBN(ch, ch, act=identity)
+
+    def forward(self, x, residual=None):
+        """proj(attention + pe(v)), plus `residual` where given (added in
+        the proj conv's epilogue)."""
+        if self.training:
+            return self._forward(x, residual)
+        with telemetry.span("layer.serve.area_attn"):
+            telemetry.add("attn.area.calls", 1)
+            return self._forward(x, residual)
+
+    def _forward(self, x, residual):
+        heads, scale = self.num_head, DK ** -0.5
+        qkv = self.qkv(x)
+        if self.training:
+            # the kernel serves inference only; the plain version's
+            # products and softmax are differentiable
+            o = area_attention_plain(qkv, heads, self.area, scale)
+        else:
+            o = area_attention(qkv, heads, self.area, scale)
+        b, _, h, w = qkv.shape
+        v = qkv.permute(0, 2, 3, 1).unflatten(-1, (heads, 3, DK))[..., 2, :]
+        v = v.reshape(b, h, w, heads * DK).permute(0, 3, 1, 2)   # channels_last
+        # attention + pe(v), the sum taken in the pe conv's epilogue
+        return self.proj(self.pe(v, residual=o), residual=residual)
+
+
+class ABlock(nn.Module):
+    """YOLO12's transformer block: x + attention(x), then x + mlp(x), the
+    MLP a 1x1 conv to int(ch · mlp_ratio) channels (SiLU) and one back.
+    Folded for serving (`pad_mlp_`), the hidden width is padded with zero
+    channels to a multiple of 8 (v12-x's 460 to 464), which cuDNN's
+    tensor-core convs and the epilogue pass's 16-byte vectors want: the
+    padded channels are SiLU(0 + 0) = 0 and read by zero weights, so the
+    block's function is unchanged."""
+
+    def __init__(self, ch: int, mlp_ratio: float, area: int):
+        super().__init__()
+        hidden = int(ch * mlp_ratio)
+        self.attn = AreaAttention(ch, area)
+        self.mlp = nn.ModuleList([ConvBN(ch, hidden), ConvBN(hidden, ch, act=identity)])
+
+    def forward(self, x):
+        x = self.attn(x, residual=x)
+        return self.mlp[1](self.mlp[0](x), residual=x)
+
+    @torch.no_grad()
+    def pad_mlp_(self):
+        """Zero-pad the folded float MLP's hidden width to a multiple of 8,
+        in place (a no-op where it is one, or where the MLP is not folded
+        or is int8)."""
+        first, second = self.mlp
+        extra = -first.w.shape[0] % 8 if first.folded and not first.quantized else 0
+        if not extra:
+            return self
+        first.w = nn.Parameter(F.pad(first.w, (0, 0, 0, 0, 0, 0, 0, extra)), requires_grad=False)
+        first.b = nn.Parameter(F.pad(first.b, (0, extra)), requires_grad=False)
+        second.w = nn.Parameter(F.pad(second.w, (0, 0, 0, 0, 0, extra)), requires_grad=False)
+        return self
+
+
+class A2C2f(nn.Module):
+    """YOLO12's stage: conv1 (no split) -> n chained blocks -> concat(1+n)
+    -> conv2. A block is two ABlocks attending in `area` strips, or, with
+    `area` None, a C3k (`CSPModule`). With `layer_scale` (attention stages
+    of v12-l and v12-x) the stage returns x + scale · conv2(...), `scale`
+    a learned per-channel vector (Ultralytics' `gamma`, 0.01 at init),
+    taken in conv2's epilogue pass."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int, area: int | None = None,
+                 mlp_ratio: float = 2.0, layer_scale: bool = False):
+        super().__init__()
+        hidden = out_ch // 2
+        self.conv1 = ConvBN(in_ch, hidden)
+        self.conv2 = ConvBN((1 + n) * hidden, out_ch)
+        self.m = nn.ModuleList([
+            nn.Sequential(ABlock(hidden, mlp_ratio, area), ABlock(hidden, mlp_ratio, area))
+            if area else CSPModule(hidden, hidden) for _ in range(n)])
+        if area and layer_scale:
+            self.scale = nn.Parameter(torch.full((out_ch,), 0.01))
+
+    def forward(self, x, remat: bool = False):
+        parts = [self.conv1(x)]
+        for block in self.m:
+            parts.append(ckpt_region(block, parts[-1]) if remat else block(parts[-1]))
+        scale = getattr(self, "scale", None)
+        return self.conv2(torch.cat(parts, 1), residual=None if scale is None else x,
+                          scale=scale)

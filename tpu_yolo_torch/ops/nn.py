@@ -89,9 +89,11 @@ def epilogue_on_card(x) -> bool:
     return x.is_cuda
 
 
-def _plus(residual, y, halves: bool = False):
-    """residual + y, or y where there is no residual; with `halves` the two
-    halves of its channels."""
+def _plus(residual, y, halves: bool = False, scale=None):
+    """residual + scale * y, without the residual or the scale where they
+    are None; with `halves` the two halves of its channels."""
+    if scale is not None:
+        y = scale.to(y.dtype).view(1, -1, 1, 1) * y
     y = y if residual is None else residual + y
     return y.chunk(2, 1) if halves else y
 
@@ -199,22 +201,23 @@ class ConvBN(nn.Module):
     def quantized(self) -> bool:
         return hasattr(self, "w_q")
 
-    def forward(self, x, residual=None, halves: bool = False):
-        """The conv, its BatchNorm and activation on x, plus `residual`
-        (a tensor of the output's shape) where given: `residual + conv(x)`,
-        in one pass with the bias and activation where the epilogue pass
+    def forward(self, x, residual=None, halves: bool = False, scale=None):
+        """The conv, its BatchNorm and activation on x, times `scale` (a
+        vector of the output's channels) and plus `residual` (a tensor of
+        the output's shape) where given: `residual + scale * conv(x)`, in
+        one pass with the bias and activation where the epilogue pass
         takes them (`_forward`). With `halves`, the two halves of the
         output's channels (as `chunk(2, 1)`), which the epilogue pass
         writes as two maps, so that a conv that reads one copies nothing."""
         if self.shard is None:
-            return self._forward(x, residual, halves)
+            return self._forward(x, residual, halves, scale)
         # split over the model axis (parallel/tensor.py): this rank's output
         # channels from the whole input (a depthwise conv's from its own
         # input channels), then every rank's side by side
         x = tensor.copy_model(x, self.shard)
         if self.groups > 1:
             x = x[:, self.shard.lo:self.shard.hi]
-        return _plus(residual, tensor.gather_model(self._forward(x), self.shard), halves)
+        return _plus(residual, tensor.gather_model(self._forward(x), self.shard), halves, scale)
 
     def _window(self, x, k: int):
         """(x, (ph, pw)): the input a k x k window runs over and the
@@ -243,34 +246,38 @@ class ConvBN(nn.Module):
         return self._run(lambda v: F.conv2d(v, w, b, stride=self.stride, padding=pad,
                                             groups=self.groups), x, w.shape[2])
 
-    def _forward(self, x, residual=None, halves: bool = False):
+    def _forward(self, x, residual=None, halves: bool = False, scale=None):
         if self.quantized:
-            return _plus(residual, self._forward_int8(x), halves)
+            return _plus(residual, self._forward_int8(x), halves, scale)
         w = self.w if self.w.dtype == x.dtype else self.w.to(x.dtype)
         if self.folded:
             b = self.b if self.b.dtype == x.dtype else self.b.to(x.dtype)
             if not epilogue_on_card(x):
-                return _plus(residual, self.act(self._conv(x, w, b)), halves)
+                return _plus(residual, self.act(self._conv(x, w, b)), halves, scale)
             # on the card: cuDNN's conv without its bias, then the bias, the
-            # activation and the residual in one pass, bit-equal to
-            # PyTorch's three; PyTorch's own passes where the pass has no
+            # activation, the scale and the residual in one pass, bit-equal
+            # to PyTorch's passes; PyTorch's own where the pass has no
             # form (another activation, a dtype but bf16 and f32) or where
             # autograd records through an input (the pass has no backward)
             telemetry.add("conv.folded", 1)
             act = EPILOGUE_ACTS.get(self.act)
+            if scale is not None and scale.dtype != x.dtype:
+                scale = scale.to(x.dtype)
             if act is None or x.dtype not in EPILOGUE_DTYPES or (
                     torch.is_grad_enabled() and any(
-                        t is not None and t.requires_grad for t in (x, w, b, residual))):
-                return _plus(residual, self.act(self._conv(x, w, b)), halves)
+                        t is not None and t.requires_grad for t in (x, w, b, residual, scale))):
+                return _plus(residual, self.act(self._conv(x, w, b)), halves, scale)
             telemetry.add("conv.fused", 1)
-            return bias_act(self._conv(x, w), b, act, residual, halves)
+            if scale is None:
+                return bias_act(self._conv(x, w), b, act, residual, halves)
+            return bias_act(self._conv(x, w), b, act, residual, scale=scale)
         y = self._conv(x, w)
         if self.training:
-            return _plus(residual, self._train_norm(y).to(x.dtype), halves)
-        scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
-        bias = self.beta.float() - self.mean.float() * scale
-        return _plus(residual, self.act(y * scale.to(y.dtype).view(1, -1, 1, 1)
-                                        + bias.to(y.dtype).view(1, -1, 1, 1)), halves)
+            return _plus(residual, self._train_norm(y).to(x.dtype), halves, scale)
+        bn_scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
+        bias = self.beta.float() - self.mean.float() * bn_scale
+        return _plus(residual, self.act(y * bn_scale.to(y.dtype).view(1, -1, 1, 1)
+                                        + bias.to(y.dtype).view(1, -1, 1, 1)), halves, scale)
 
     def _train_norm(self, y):
         """BatchNorm over the batch and the activation, in f32: biased

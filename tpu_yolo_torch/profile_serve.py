@@ -1,9 +1,10 @@
 """Where the serving time goes on a CUDA card.
 
-    python -m tpu_yolo_torch.profile_serve
+    python -m tpu_yolo_torch.profile_serve [--model-size n|...|x|12n|...|12x]
 
-Serves YOLOv11-n at 640 px, batch 128, with the Detector's defaults (bf16,
-multi-label, K=1024) and seeded weights (seeded.py), times 10 batches by
+Serves one size (YOLOv11-n unless told) at 640 px, batch 128, with the
+Detector's defaults (bf16, multi-label, K=1024) and seeded weights
+(seeded.py), times 10 batches by
 the host clock, then traces 3 batches with torch.profiler. Prints one
 JSON object: img/s, the device's busy share of the traced wall time,
 device time per batch by kernel group, for the top kernels, and for each
@@ -13,6 +14,7 @@ counters over the traced batches (`telemetry`: `telemetry.snapshot()`).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import time
@@ -20,13 +22,14 @@ import time
 import numpy as np
 import torch
 
-from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.core.config import SIZES, get_model_config
 from tpu_yolo_torch.models.yolov11 import YOLO
 from tpu_yolo_torch.seeded import seeded_images, serving_state
 from tpu_yolo_torch.serve import Detector
 from tpu_yolo_torch.utils import telemetry
 
 GROUPS = (  # first match wins; matched against the lowercased kernel name
+    ("area_attention", r"attention_v32_\w*kernel"),   # YOLO12's 32-wide form
     ("psa_attention", r"attention_\w*kernel"),
     ("nms_greedy_keep", r"nms_keep_kernel"),
     ("bias_act", r"bias_act_kernel"),
@@ -68,11 +71,12 @@ def device_time(prof, per: int, groups=GROUPS):
     return dict(sorted(by_group.items(), key=lambda kv: -kv[1])), kernels
 
 
-def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
+def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3,
+         model_size: str = "n"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA card")
     dev = torch.device("cuda")
-    cfg = get_model_config("n")
+    cfg = get_model_config(model_size)
     imgs = seeded_images(np.random.default_rng(0), batch, size)
     det = Detector(YOLO.from_state_dict(cfg, serving_state(cfg, 0, imgs[:16], dev)),
                    input_size=size, device="cuda")
@@ -98,7 +102,7 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
     groups, kernels = device_time(prof, traced)
     device_ms = sum(groups.values())
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "model": "v11-n", "size": size,
+        "device": torch.cuda.get_device_name(0), "model": model_size, "size": size,
         "batch": batch, "img_per_s": img_s,
         "wall_ms_per_batch": wall_ms / traced,
         "device_ms_per_batch": device_ms,
@@ -108,7 +112,8 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
                         for ms, n, name in kernels[:15]],
         "own_kernels": [{"ms_per_batch": ms, "calls_per_batch": n, "name": name[:120]}
                         for ms, n, name in kernels
-                        if _group(name) in ("psa_attention", "nms_greedy_keep", "bias_act")],
+                        if _group(name) in ("area_attention", "psa_attention", "nms_greedy_keep",
+                                            "bias_act")],
         "span_ms_per_batch": {k: s * 1e3 / traced
                               for k, s in sorted(telemetry.device_seconds(prof).items())},
         "telemetry": telemetry.snapshot(),
@@ -116,4 +121,6 @@ def main(batch: int = 128, size: int = 640, timed: int = 10, traced: int = 3):
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser("profile_serve")
+    ap.add_argument("--model-size", default="n", choices=SIZES)
+    main(model_size=ap.parse_args().model_size)

@@ -75,13 +75,13 @@ def trace_convs(size: str, input_size: int, batch: int) -> list[dict]:
     input_size), in the order they run: {"path", "kind": "conv", "in"
     (NHWC), "w" (HWIO), "out" (NHWC), "stride", "groups"} and {"path",
     "kind": "dot", "flops", "bytes"}, the JAX package's records."""
-    from tpu_yolo_torch.models.yolov11 import YOLO
+    from tpu_yolo_torch.models.yolov11 import model_class
     from tpu_yolo_torch.ops.blocks import Attention
     from tpu_yolo_torch.ops.nn import ConvBN
 
     cfg = get_model_config(size)
     with torch.device("meta"):
-        model = YOLO(cfg).train()
+        model = model_class(cfg)(cfg).train()
     names = {m: n.replace(".", "/") for n, m in model.named_modules()}
     recs = []
 

@@ -338,6 +338,9 @@ class _Converter:
         of the (C, 1, 1) bias, SiLU as Mul(v, Sigmoid(v)), Add of the
         residual; with `halves`, a Split of the channels in two."""
         y, b, act, residual, halves = n.args[:5]
+        if _arg(n, 5, "scale") is not None:
+            raise NotImplementedError("ONNX export: YOLO12's layer-scaled epilogue has no "
+                                      "handler")
         g = self.g
         v = g.add("Add", [self.operand(y), self._channel_bias(b)])
         if act == "silu":

@@ -41,7 +41,11 @@ NMS), split without remainder into `layer.serve.nms.rank`,
 `nms.budget_full` (images whose K-th candidate is above conf),
 `nms.kept`, `nms.capped` (images at max_det); `conv.folded` (folded
 float convs run on a CUDA tensor, ops/nn.py) and `conv.fused` (those
-whose bias, activation and residual ran in the `bias_act` pass). Set-up:
+whose bias, activation and residual ran in the `bias_act` pass). YOLO12
+(ops/blocks.py): the span `layer.serve.area_attn` around each area
+attention forward in eval (its qkv conv, the kernel, pe and proj), and
+the counter `attn.area.calls` (those forwards); `attn.area.kernel`
+(ops/attention_cuda.py: the hand-written kernel's launches for them). Set-up:
 `setup.place_s`, `setup.first_batch_s` (host seconds of the Detector's
 placement and of its first batch), `setup.kernels_built` and
 `setup.build_s.<library>` (ops/cuda_build.py's compiles in this
@@ -62,7 +66,8 @@ SERVE_SPANS = ("layer.serve.stage", "layer.serve.forward", "layer.serve.nms",
 _KERNELS = (("psa_attention", "tpu_yolo_torch.ops.attention_cuda", "fused_attention"),
             ("nms_greedy_keep", "tpu_yolo_torch.ops.nms_cuda", "greedy_keep"),
             ("topk_mask", "tpu_yolo_torch.ops.topk_cuda", "topk_mask"),
-            ("bias_act", "tpu_yolo_torch.ops.bias_act_cuda", "bias_act"))
+            ("bias_act", "tpu_yolo_torch.ops.bias_act_cuda", "bias_act"),
+            ("area_attention", "tpu_yolo_torch.ops.attention_cuda", "area_attention"))
 _SLOTS = 16   # device counters a process may name
 PENDING_MAX = 32   # device counts held before they are summed
 
