@@ -385,6 +385,104 @@ def test_bf16_train_step_runs_the_topk_kernel(cuda):
     assert state.step == 3 and state.ema_updates == 3
 
 
+STAGE_SIZE = 320
+
+
+def _v11n_detector():
+    """v11-n with seeded weights, class biases at -1, bf16 on the card."""
+    cfg = get_model_config("n")
+    params = init_params(0, cfg)
+    for level in params["head"]["cls"]:
+        level[4]["b"][:] = -1.0
+    return Detector(YOLO.from_state_dict(cfg, from_jax_params(params, cfg)),
+                    input_size=STAGE_SIZE, device="cuda")
+
+
+def _stage_batches(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (8, STAGE_SIZE, STAGE_SIZE, 3), np.uint8) for _ in range(n)]
+
+
+def _assert_equal(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def test_pageable_pinned_and_device_inputs_give_the_same_detections(cuda):
+    """v11-n at batch 8: a pageable batch (through the pinned ring), a
+    pinned one (copied as it is) and one already on the card give the
+    same detections bit for bit."""
+    det = _v11n_detector()
+    pageable = torch.from_numpy(_stage_batches(1, 5)[0])
+    results = [det.detect_batch(x) for x in (pageable, pageable.pin_memory(),
+                                             pageable.to(cuda))]
+    assert int(results[0]["count"].sum()) > 0
+    for res in results[1:]:
+        _assert_equal(res, results[0])
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["pageable", "pinned"])
+def test_caller_may_overwrite_its_batch_when_detect_batch_returns(cuda, pinned):
+    """The caller's array has been read when detect_batch returns: zeroing
+    it at once leaves that batch's detections as they were."""
+    det = _v11n_detector()
+    imgs = _stage_batches(1, 6)[0]
+    want = det.detect_batch(imgs.copy())
+    x = torch.from_numpy(imgs.copy())
+    x = x.pin_memory() if pinned else x
+    got = det.detect_batch(x)
+    x.zero_()
+    det.detect_batch(x)
+    _assert_equal(got, want)
+
+
+def test_batches_in_flight_through_the_ring_equal_their_own_results(cuda):
+    """Six distinct batches written in turn into one caller buffer and
+    served 2 in flight, as the benchmark's client does, through the
+    2-slot ring: each batch's detections equal those of the batch served
+    alone."""
+    from tpu_yolo_torch.serve import RING_SLOTS, fetch_async
+
+    det = _v11n_detector()
+    batches = _stage_batches(6, 7)
+    buf = torch.empty((8, STAGE_SIZE, STAGE_SIZE, 3), dtype=torch.uint8)
+    inflight, fetched = [], []
+    for b in batches:
+        buf.copy_(torch.from_numpy(b))
+        inflight.append(fetch_async(det.detect_batch(buf)))
+        if len(inflight) == 2:
+            fetched.append(inflight.pop(0))
+    fetched += inflight
+    assert RING_SLOTS == 2 and all(len(bufs) == 1 for bufs in det._ring)
+    for (res, done), b in zip(fetched, batches):
+        done.synchronize()
+        _assert_equal(res, det.detect_batch(b))
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["pageable", "pinned"])
+def test_staging_counters_under_a_profiler(cuda, pinned):
+    """Six batches under a profiler: `stage.host` 6, and `stage.ring` 6
+    for a pageable batch or `stage.direct` 6 for a pinned one."""
+    from tpu_yolo_torch.utils import telemetry
+
+    det = _v11n_detector()
+    x = torch.from_numpy(_stage_batches(1, 8)[0])
+    x = x.pin_memory() if pinned else x
+    det.detect_batch(x)
+    torch.cuda.synchronize()
+    telemetry.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(6):
+            det.detect_batch(x)
+        torch.cuda.synchronize()
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    assert snap["stage.host"] == 6
+    assert snap.get("stage.ring", 0) == (0 if pinned else 6)
+    assert snap.get("stage.direct", 0) == (6 if pinned else 0)
+
+
 def test_stream_on_the_card_equals_detect_one(cuda, tmp_path):
     """stream()'s pinned double buffer and per-result events give what
     detect_one gives, image by image (f32, TF32 off: the two paths run

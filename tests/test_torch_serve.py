@@ -16,10 +16,10 @@ from tpu_yolo.core.config import get_model_config as jax_config
 from tpu_yolo.io.weights import save_torch_checkpoint
 from tpu_yolo.models import yolov11 as jax_yolo
 from tpu_yolo.serve import Detector as JaxDetector
-from tpu_yolo_torch.core.config import get_model_config
+from tpu_yolo_torch.core.config import ModelConfig, get_model_config
 from tpu_yolo_torch.data import native_loader
 from tpu_yolo_torch.io.weights import from_jax_params
-from tpu_yolo_torch.models.yolov11 import YOLO
+from tpu_yolo_torch.models.yolov11 import YOLO, init_params
 from tpu_yolo_torch.serve import Detector
 
 torch.set_num_threads(1)
@@ -108,6 +108,52 @@ def test_stream_equals_detect_one(detector, jpegs):
         np.testing.assert_allclose(r["boxes"], one["boxes"], atol=1e-3)
         np.testing.assert_allclose(r["scores"], one["scores"], atol=1e-5)
         np.testing.assert_array_equal(r["classes"], one["classes"])
+
+
+def test_run_and_the_saved_program_stage_through_one_helper(tmp_path, monkeypatch):
+    """`_run` and `load_compiled`'s `run` both copy their inputs through
+    `Detector._stage`, and give the same detections."""
+    cfg = ModelConfig(width=(3, 8, 16, 32, 64, 128), depth=(1,) * 6,
+                      csp=(False, True), num_classes=8)
+    state = YOLO.from_state_dict(cfg, from_jax_params(init_params(0, cfg), cfg)) \
+        .fold_batchnorm().state_dict()
+    live = Detector(YOLO.from_state_dict(cfg, state), input_size=SIZE, conf_thres=1e-6,
+                    device="cpu", compute_dtype=torch.float32)
+    loaded = Detector.load_compiled(live.save_compiled(str(tmp_path / "det.pt2z"), 2),
+                                    state)
+    staged, stage = [], Detector._stage
+
+    def spy(self, inputs):
+        staged.append((self, [tuple(x.shape) for x in inputs]))
+        return stage(self, inputs)
+
+    monkeypatch.setattr(Detector, "_stage", spy)
+    imgs = _images(2, seed=3)
+    want, got = live.detect_batch(imgs), loaded.detect_batch(imgs)
+    assert staged == [(live, [(2, SIZE, SIZE, 3)]), (loaded, [(2, SIZE, SIZE, 3)])]
+    assert int(want["count"].min()) > 0
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_cpu_detector_passes_its_inputs_through(detector):
+    """On a CPU Detector the staging helper hands the inputs back as they
+    are, makes no copy stream or pinned ring, and counts no staging,
+    under a profiler too."""
+    from tpu_yolo_torch.utils import telemetry
+
+    x = torch.from_numpy(_images(2, seed=4))
+    hw = torch.ones((2, 2))
+    telemetry.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = detector._stage([x, hw])
+        detector.detect_batch(x)
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    assert out[0] is x and out[1] is hw
+    assert snap["nms.images"] == 2
+    assert not any(k.startswith("stage.") for k in snap)
+    assert detector._copy_stream is None and not any(detector._ring)
 
 
 def test_decode_and_rescale_match_jax(jpegs, monkeypatch):

@@ -11,6 +11,11 @@
   device:  [letterbox (ops/letterbox.py)] -> /255 in the compute dtype ->
            YOLO.forward_raw -> nms_from_raw, on the card unless the caller
            passes device="cpu";
+  stage:   on the card a host batch is copied on a copy stream of the
+           Detector's, from a ring of pinned buffers (a pageable batch is
+           first copied into one on the host), and the compute stream
+           waits for it by an event: batch i+1's copy runs under batch
+           i's forward (`Detector._stage`);
   overlap: `stream` double-buffers: batch i+1 is decoded (on the card,
            into one of two device buffers; on the CPU, into pinned host
            memory) while batch i runs, and each result comes back through
@@ -55,6 +60,7 @@ from tpu_yolo_torch.utils import telemetry
 from tpu_yolo_torch.utils.export import WeightsAsInputs
 
 EXPORT_FORMAT = "tpu_yolo_torch-export-v1"
+RING_SLOTS = 2  # pinned staging slots: a batch is copied in while the one before runs
 
 
 def _device(device) -> torch.device:
@@ -142,6 +148,10 @@ class Detector:
         self._host_pipe = None  # the host letterbox pipeline, made at first use
         self._fixed_batch = None  # set by load_compiled
         self._first_batch_s = None  # host seconds of the first batch served
+        self._copy_stream = None  # the host inputs' copy stream, made at first use
+        self._ring = [[] for _ in range(RING_SLOTS)]  # each slot's pinned byte buffers
+        self._ring_done = [None] * RING_SLOTS  # the event of each slot's last copies
+        self._ring_next = 0
         t0 = time.perf_counter()
         self.model = self._place(model)
         self._replicas = dp.replicate(self.model) if dp is not None else None
@@ -284,6 +294,84 @@ class Detector:
                                    allow_upscale=True)
         return self._program(boxed, model)
 
+    def _stage(self, inputs) -> list:
+        """The inputs on the Detector's device, inside `layer.serve.stage`.
+
+        On a CUDA Detector each host tensor is copied to the card on the
+        Detector's copy stream, and the current (compute) stream waits
+        for the copies through an event, so a batch's copy runs under the
+        work queued before it. A tensor in pageable memory is first
+        copied on the host into the next of RING_SLOTS slots of pinned
+        buffers (a slot is reused once its last copies have ended; its
+        buffers grow to the largest input seen); a pinned contiguous one
+        is copied as it is, and waited for. Either way the caller's
+        tensor has been read when this returns. Each device copy is
+        allocated on the copy stream and recorded for the compute
+        stream, so its memory goes to no later copy before the compute
+        stream has read it. Device tensors, and every input of a CPU
+        Detector, are moved by `.to` as they are.
+
+        Counters: `stage.host` (host tensors staged), `stage.ring`
+        (through the pinned ring), `stage.direct` (pinned, copied as
+        they are), `stage.slot_wait` (slots whose last copies had not
+        ended when they were claimed)."""
+        on_host = [x.device.type == "cpu" for x in inputs]
+        if self.device.type != "cuda" or not any(on_host):
+            return [x.to(self.device, non_blocking=True) for x in inputs]
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        copy, compute = self._copy_stream, torch.cuda.current_stream(self.device)
+        out, slot, ring, direct = [], None, 0, False
+        for x, host in zip(inputs, on_host):
+            if not host:
+                out.append(x.to(self.device, non_blocking=True))
+                continue
+            telemetry.add("stage.host", 1)
+            if x.is_pinned() and x.is_contiguous():
+                telemetry.add("stage.direct", 1)
+                src, direct = x, True
+            else:
+                if slot is None:
+                    slot = self._claim_slot()
+                src = self._ring_buffer(slot, ring, x).copy_(x)
+                ring += 1
+                telemetry.add("stage.ring", 1)
+            with torch.cuda.stream(copy):
+                dev = torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                dev.copy_(src, non_blocking=True)
+            dev.record_stream(compute)
+            out.append(dev)
+        done = torch.cuda.Event()
+        done.record(copy)
+        compute.wait_event(done)
+        if slot is not None:
+            self._ring_done[slot] = done
+        if direct:
+            done.synchronize()
+        return out
+
+    def _claim_slot(self) -> int:
+        """The next slot of the pinned ring, once its last copies have
+        ended."""
+        slot = self._ring_next
+        self._ring_next = (slot + 1) % RING_SLOTS
+        done = self._ring_done[slot]
+        if done is not None and not done.query():
+            telemetry.add("stage.slot_wait", 1)
+            done.synchronize()
+        return slot
+
+    def _ring_buffer(self, slot: int, i: int, x: torch.Tensor) -> torch.Tensor:
+        """A contiguous pinned view shaped as `x`, over the slot's i-th
+        byte buffer (allocated anew only for a larger input)."""
+        bufs = self._ring[slot]
+        n = x.numel() * x.element_size()
+        if i == len(bufs):
+            bufs.append(None)
+        if bufs[i] is None or len(bufs[i]) < n:
+            bufs[i] = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
+        return bufs[i][:n].view(x.dtype).view(x.shape)
+
     def _run(self, program, *inputs):
         """program(*inputs) with the inputs (on the host or the device) on
         the Detector's device or, with dp, split over its devices, one
@@ -291,7 +379,7 @@ class Detector:
         with torch.inference_mode():
             if self._dp is None:
                 with telemetry.span("layer.serve.stage"):
-                    inputs = [x.to(self.device, non_blocking=True) for x in inputs]
+                    inputs = self._stage(inputs)
                 return program(*inputs)
             with telemetry.span("layer.serve.stage"):
                 parts = list(zip(*(self._dp.shard_batch(x) for x in inputs)))
@@ -320,7 +408,12 @@ class Detector:
     def detect_batch(self, images_u8):
         """(B, S, S, 3) uint8 RGB (numpy or torch) -> result dict of
         tensors on the device, in letterbox coordinates. A Detector from
-        `load_compiled` takes its artifact's batch size only."""
+        `load_compiled` takes its artifact's batch size only.
+
+        When this returns, a host array has been read (on the card it is
+        copied from pinned memory on a stream of its own, `_stage`): the
+        caller may overwrite it at once. The detections are computed
+        asynchronously on the card."""
         x = torch.as_tensor(images_u8)
         if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"detect_batch expects (B, S, S, 3) uint8, got "
@@ -460,7 +553,7 @@ class Detector:
         def run(*inputs):
             with torch.inference_mode():
                 with telemetry.span("layer.serve.stage"):
-                    inputs = [x.to(device, non_blocking=True) for x in inputs]
+                    inputs = det._stage(inputs)
                 return program(weights, *inputs)
 
         if meta["staged"]:

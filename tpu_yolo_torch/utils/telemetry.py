@@ -33,7 +33,11 @@ traced batch, so device counts are held as given and summed by
 `snapshot()`, or once `PENDING_MAX` are held.
 
 The serving path's spans (Detector, YOLO.forward_nms, ops/nms.py):
-`layer.serve.stage` (the inputs' copy to the device),
+`layer.serve.stage` (the inputs' copy to the device; counters
+`stage.host`, host inputs staged on the card, `stage.ring`, those
+copied through serve.py's pinned ring, `stage.direct`, those already
+pinned, and `stage.slot_wait`, ring slots claimed before their last
+copies had ended),
 `layer.serve.forward` (`forward_raw`), `layer.serve.nms` (decode and
 NMS), split without remainder into `layer.serve.nms.rank`,
 `.decode`, `.keep` and `.compact`. Counters: `nms.images`, `nms.slots`
